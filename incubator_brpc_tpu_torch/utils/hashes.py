@@ -1,0 +1,125 @@
+"""Hashes & randoms (analog of butil crc32c/murmurhash3/fast_rand).
+
+crc32c (Castagnoli) matches the reference's butil::crc32c used for
+framing checksums; murmur3_32 matches butil::MurmurHash32 used by
+consistent-hashing load balancers. A C++ native implementation (see
+native/) is used when present; these pure-Python versions are the
+always-available fallback and the source of truth for test vectors.
+"""
+
+from __future__ import annotations
+
+import random
+import struct
+
+# ---- crc32c (Castagnoli, poly 0x1EDC6F41 reflected = 0x82F63B78) ----------
+_CRC32C_TABLE = []
+
+
+def _build_table():
+    poly = 0x82F63B78
+    for i in range(256):
+        crc = i
+        for _ in range(8):
+            crc = (crc >> 1) ^ poly if crc & 1 else crc >> 1
+        _CRC32C_TABLE.append(crc)
+
+
+_build_table()
+
+_native = None
+
+
+def _load_native():
+    global _native
+    if _native is None:
+        try:
+            from incubator_brpc_tpu_torch.native import lib as _nlib
+
+            _native = _nlib
+        except Exception:
+            _native = False
+    return _native
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    n = _load_native()
+    if n:
+        return n.crc32c(data, crc)
+    crc ^= 0xFFFFFFFF
+    table = _CRC32C_TABLE
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+# ---- murmur3 32-bit (butil::MurmurHash32) ---------------------------------
+def murmur3_32(data: bytes, seed: int = 0) -> int:
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h = seed & 0xFFFFFFFF
+    nblocks = len(data) // 4
+    for i in range(nblocks):
+        k = struct.unpack_from("<I", data, i * 4)[0]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+        h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+    tail = data[nblocks * 4 :]
+    k = 0
+    if len(tail) >= 3:
+        k ^= tail[2] << 16
+    if len(tail) >= 2:
+        k ^= tail[1] << 8
+    if len(tail) >= 1:
+        k ^= tail[0]
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        k = (k * c2) & 0xFFFFFFFF
+        h ^= k
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h
+
+
+# ---- fast_rand (butil/fast_rand.h) ----------------------------------------
+_rng = random.Random()
+
+
+def fast_rand() -> int:
+    return _rng.getrandbits(64)
+
+
+def fast_rand_less_than(n: int) -> int:
+    return _rng.randrange(n) if n > 0 else 0
+
+
+def fast_rand_double() -> float:
+    return _rng.random()
+
+
+# ---- fmix64 (counter-mode deterministic hashing) ---------------------------
+# Used wherever a decision must be a PURE function of (seed, counter):
+# chaos fault schedules (chaos/plan.py) and seeded retry-backoff jitter
+# (client/retry.py) — replays reproduce the identical sequence.
+_MASK64 = (1 << 64) - 1
+
+# golden-ratio counter stride fed to fmix64 (engine.cpp fault_check
+# mirrors it); replay-critical — defined ONCE for all Python users
+GOLDEN64 = 0x9E3779B97F4A7C15
+
+
+def fmix64(x: int) -> int:
+    """MurmurHash3's fmix64 finalizer: a high-quality 64-bit mix."""
+    x &= _MASK64
+    x ^= x >> 33
+    x = (x * 0xFF51AFD7ED558CCD) & _MASK64
+    x ^= x >> 33
+    x = (x * 0xC4CEB9FE1A85EC53) & _MASK64
+    x ^= x >> 33
+    return x
