@@ -8,8 +8,10 @@ protocols, client, server, chaos) are its own copies.
 
 What is ported so far is the device-payload RPC path: ``IOBuf``
 ``DeviceRef`` segments over ``torch.Tensor``, the ICI fabric
-(``parallel/ici.py``) and its copy+checksum kernels written by hand for
-Hopper (``ops/csrc/transfer.cu``).  ROADMAP.md lists what remains.
+(``parallel/ici.py``) and its copy kernels written by hand for Hopper
+(``ops/csrc/transfer.cu``); and the micro-batched parameter server
+(``batching/``, ``models/parameter_server.py``).  ROADMAP.md lists what
+remains.
 """
 
 __version__ = "0.1.0"
@@ -42,10 +44,14 @@ def __getattr__(name):
         "Channel": ("incubator_brpc_tpu_torch.client.channel", "Channel"),
         "ChannelOptions": ("incubator_brpc_tpu_torch.client.channel", "ChannelOptions"),
         "Controller": ("incubator_brpc_tpu_torch.client.controller", "Controller"),
+        "batching": ("incubator_brpc_tpu_torch.batching", None),
+        "BatchPolicy": ("incubator_brpc_tpu_torch.batching.policy", "BatchPolicy"),
+        "PsService": ("incubator_brpc_tpu_torch.models.parameter_server", "PsService"),
+        "ps_stub": ("incubator_brpc_tpu_torch.models.parameter_server", "ps_stub"),
     }
     if name in mapping:
         mod, attr = mapping[name]
-        return getattr(_lazy(mod), attr)
+        return _lazy(mod) if attr is None else getattr(_lazy(mod), attr)
     if name in _UNPORTED:
         from incubator_brpc_tpu_torch.unported import unported
 

@@ -1,13 +1,16 @@
 """Carry state from the JAX package into the port.
 
-There are no weights on the echo path: the state carried across is the
-payload.  ``tensor_from_reference`` turns a numpy array (for example
+``tensor_from_reference`` turns a numpy array (for example
 ``np.asarray`` of a ``jax.Array``) into the port's tensor with the same
 dtype, shape and bytes.  numpy has no native bfloat16; JAX hands out
 its ``ml_dtypes`` bfloat16, which crosses here bit for bit.
+``params_from_reference`` carries a whole parameter store (the JAX
+``PsService``'s stored matrices, key by key) the same way.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -25,3 +28,12 @@ def tensor_from_reference(array, device=None) -> torch.Tensor:
     else:
         t = torch.from_numpy(a)
     return t.to(dev)
+
+
+def params_from_reference(params: Mapping[str, np.ndarray],
+                          device=None) -> Dict[str, torch.Tensor]:
+    """Each named array of ``params`` as a tensor with its bytes on
+    ``device`` (default as for :func:`tensor_from_reference`), ready for
+    the port's ``PsService.put_param``."""
+    dev = device_for_chip(0, device)
+    return {key: tensor_from_reference(a, dev) for key, a in params.items()}

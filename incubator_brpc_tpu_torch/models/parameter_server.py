@@ -1,0 +1,408 @@
+"""Parameter-server model family — parameters behind RPC.
+
+Port of the JAX package's ``models/parameter_server.py``: ``PsService``
+stores named tensors and serves Get/Put of them, whose payloads ride
+IOBuf device segments (a fetch over the ICI transport hands the client
+a device-resident ``torch.Tensor``), and the batched ``Forward``
+``y = x @ W``: N concurrent calls become ONE padded (bucket, d) @ W
+product that streams W once per batch.
+
+Where the port differs from the JAX package:
+
+- **An explicit device.**  ``PsService(device=None)`` keeps its host-
+  supplied parameters on the card (chip 0 through the port's
+  ``parallel/mesh.py`` helper; with no card and no device it raises).
+  ``put_param`` of a numpy array places it there once; the JAX package
+  stores the numpy array and lets ``jax.jit`` upload it on every call.
+  A W that arrives by Put is the tensor the fabric delivered, stored as
+  is.
+- **Single card only.**  The sharded store (``mesh=`` over more than one
+  chip, ``remesh``), ``sharded_ps_channel`` and ``scatter_param`` are
+  ROADMAP.md queue 1 item 5; the training step (``make_training_step``)
+  is item 13.  Each raises ``NotImplementedError`` naming its item.
+
+The product is ``torch.matmul`` in float32 with TF32 off (PyTorch's
+default, ``torch.backends.cuda.matmul.allow_tf32 = False``): the JAX
+package leaves it to XLA, so it is no TPU kernel and has no
+hand-written counterpart.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+import numpy as np
+import torch
+
+from incubator_brpc_tpu_torch.batching.fused import FusedKernel
+from incubator_brpc_tpu_torch.batching.policy import BatchPolicy
+from incubator_brpc_tpu_torch.observability.profiling import hbm_account, kernel_section
+from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+from incubator_brpc_tpu_torch.server.service import (
+    Service,
+    ServiceStub,
+    batched_method,
+    rpc_method,
+)
+from incubator_brpc_tpu_torch.unported import unported
+
+# HBM heap profiler hookup (observability/profiling.py): every stored
+# device parameter is adopted under this tag.  The handle is resolved at
+# import so no store-lock holder ever touches the registry lock.
+_PS_ACCT = hbm_account("ps.params")
+_NO_CHARGE = (0, 0)
+
+
+def _hbm_charge(val):
+    """Adopt a stored value's device bytes; (bytes, allocs) to remember
+    for release at replace/delete.  Host ``bytes`` payloads carry no
+    ``.nbytes`` and charge nothing."""
+    if isinstance(val, list):
+        charges = [_PS_ACCT.adopt(a) for a in val]
+        return sum(charges), sum(1 for c in charges if c)
+    n = _PS_ACCT.adopt(val)
+    return n, (1 if n else 0)
+
+
+def _hbm_release(charge) -> None:
+    nbytes, allocs = charge
+    if nbytes:
+        _PS_ACCT.release(nbytes, allocs)
+
+
+def max_servable_dim(per_chip_bytes: int, n_shards: int = 1,
+                     dtype_bytes: int = 4) -> int:
+    """HBM-ceiling math (docs/sharded_ps.md): the largest square (d, d)
+    parameter matrix servable when each chip budgets ``per_chip_bytes``
+    for it.  Row-sharding over n chips stores d*d*dtype/n per chip, so
+    d_max = floor(sqrt(per_chip_bytes * n / dtype)) — the ceiling grows
+    with sqrt(n): 4 shards serve 2x the single-chip d, 16 shards 4x.
+    Sharded results round DOWN to a multiple of n_shards (the row dim
+    must divide evenly to shard)."""
+    d = int((per_chip_bytes * n_shards / dtype_bytes) ** 0.5)
+    if n_shards > 1:
+        d -= d % n_shards
+    return d
+
+# Default coalescing contract of the PS methods (docs/batching.md):
+# engages only on servers started with enable_batching=True; everywhere
+# else the synthesized single-request adapter keeps the pre-batching
+# behavior bit-for-bit.  Buckets cover every batch size ≤ 32, so the
+# fused Forward kernel traces at most 6 times per row shape.
+PS_BATCH_POLICY = BatchPolicy(
+    max_batch_size=32,
+    max_wait_us=1000,
+    padding_buckets=(1, 2, 4, 8, 16, 32),
+)
+
+
+def _forward(w, x):
+    # jnp promotes mixed operand types; torch.matmul refuses them
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        return x.to(t) @ w.to(t)
+    return x @ w
+
+
+# Fused Forward kernel: Y = X @ W, one product per batch.  N separate
+# matvecs each stream the full W from memory (bandwidth-bound), while
+# the batched (rows, d) @ W streams W ONCE for the whole batch — the
+# weight-reuse economics of inference serving.  FusedKernel shares the
+# batching.fused trace counter, so padding buckets bound its traces the
+# same way they bound the stack's.
+_FORWARD_KERNEL = FusedKernel(
+    _forward,
+    label="ps.forward",
+    batch_buckets=PS_BATCH_POLICY.padding_buckets,
+)
+
+
+class PsService(Service):
+    """Parameter server: store/fetch tensors by key.
+
+    Uses EchoRequest.message as the key channel and attachments as the
+    tensor payload (device segments stay on the card over the ICI
+    transport).
+
+    All data methods are @batched_method.  Get/Put coalesce dispatch:
+    one handler invocation and one store-lock acquisition serve the
+    whole window.  Forward is the fused device op: N concurrent calls
+    become ONE padded (bucket, d) @ W product that streams the
+    parameter matrix once for the batch instead of once per request.
+
+    ``device`` is where ``put_param`` places host arrays (default: the
+    card of chip 0; raises without a card unless given).  ``mesh`` over
+    more than one chip is the sharded store, not ported yet.
+    """
+
+    SERVICE_NAME = "PsService"
+
+    def __init__(self, mesh=None, shard_axis: str = "chip", device=None):
+        from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
+
+        if mesh is not None and int(mesh.shape.get(shard_axis, 1)) > 1:
+            unported("the sharded parameter server (PsService mesh=)", 5)
+        self._device = device_for_chip(0, device)
+        self._store: Dict[str, object] = {}
+        self._lock = threading.Lock()
+        # per-key (bytes, allocs) HBM charge, mutated under self._lock
+        self._hbm: Dict[str, tuple] = {}
+
+    @property
+    def shard_kernel(self):
+        """The sharded batch kernel: None, the port serves one card."""
+        return None
+
+    def put_param(self, key: str, value) -> bool:
+        """Server-side store API (the bench and ops tooling seed through
+        this).  A numpy array is placed on the service's device once; a
+        tensor or ``bytes`` is stored as is.  Returns False: nothing is
+        sharded on one card."""
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(np.ascontiguousarray(value)).to(self._device)
+        charge = _hbm_charge(value)  # metadata-only: fine outside the lock
+        with self._lock:
+            _hbm_release(self._hbm.pop(key, _NO_CHARGE))
+            self._store[key] = value
+            if charge[0]:
+                self._hbm[key] = charge
+        return False
+
+    @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
+    def Put(self, controllers, requests, responses, done):
+        rows = []
+        for controller, request, response in zip(controllers, requests, responses):
+            att = controller.request_attachment
+            try:
+                arrays = att.device_arrays()
+            except ValueError:
+                arrays = None
+            if arrays:
+                # the fresh tensor the fabric delivered on this server
+                # port's device: stored as is
+                val = arrays[0] if len(arrays) == 1 else arrays
+            else:
+                val = att.to_bytes()
+            rows.append((request.message, val, _hbm_charge(val)))
+            response.message = request.message
+        with self._lock:  # one acquisition serves the whole window
+            for key, val, charge in rows:
+                _hbm_release(self._hbm.pop(key, _NO_CHARGE))
+                self._store[key] = val
+                if charge[0]:
+                    self._hbm[key] = charge
+        done()
+
+    @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
+    def Get(self, controllers, requests, responses, done):
+        # Get has no device compute to fuse — the stored tensor attaches
+        # to the response as-is (zero device ops).  Batching still pays
+        # off the per-request overheads: one handler invocation, one
+        # store-lock acquisition, one dispatch per window instead of N.
+        from incubator_brpc_tpu_torch import errors
+
+        with self._lock:
+            vals = [self._store.get(r.message) for r in requests]
+        for val, controller, request, response in zip(
+            vals, controllers, requests, responses
+        ):
+            if val is None:
+                controller.set_failed(
+                    errors.EREQUEST, f"no such key: {request.message}"
+                )
+                continue
+            if isinstance(val, (bytes, bytearray)):
+                controller.response_attachment.append(val)
+            elif isinstance(val, list):
+                for a in val:
+                    controller.response_attachment.append_device(a)
+            else:
+                controller.response_attachment.append_device(val)
+            response.message = request.message
+        done()
+
+    @rpc_method(EchoRequest, EchoResponse)
+    def Keys(self, controller, request, response, done):
+        """Enumerate this shard's live keys (newline-joined, sorted, in
+        the response attachment).  Control-plane rate: plain
+        (unbatched) by design."""
+        with self._lock:
+            keys = sorted(self._store)
+        controller.response_attachment.append(
+            "\n".join(keys).encode("utf-8")
+        )
+        response.message = str(len(keys))
+        done()
+
+    @rpc_method(EchoRequest, EchoResponse)
+    def Delete(self, controller, request, response, done):
+        """Remove a key (idempotent).  response.message is "1" when the
+        key was live, "0" when it was already gone."""
+        with self._lock:
+            existed = request.message in self._store
+            self._store.pop(request.message, None)
+            _hbm_release(self._hbm.pop(request.message, _NO_CHARGE))
+        response.message = "1" if existed else "0"
+        done()
+
+    def remesh(self, mesh, shard_axis: str = "chip") -> int:
+        """Re-mesh the store: ``mesh=None`` (or one chip) keeps the
+        single-card service and re-places nothing; more chips are the
+        sharded store, not ported yet."""
+        if mesh is None or int(mesh.shape.get(shard_axis, 1)) <= 1:
+            return 0
+        unported("the sharded parameter server (PsService.remesh)", 5)
+
+    @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
+    def Forward(self, controllers, requests, responses, done):
+        """Apply a stored parameter matrix to a caller-supplied input:
+        ``y = x @ W`` where ``W`` is the (d, d) tensor stored under
+        ``request.message`` and ``x`` rides the request attachment as
+        d float32s.  The response attachment carries ``y`` (d float32s).
+
+        The fused device op: a batch of N concurrent Forwards becomes
+        ONE padded (bucket, d) @ W product — one host-to-device copy of
+        the stacked inputs, one product that streams W once instead of
+        N times, one device-to-host pull of the n live rows (the batch's
+        one sync).  Per-row validation failures (unknown key, wrong
+        input size) fail only that row's controller; batch-mates still
+        execute.
+        """
+        from incubator_brpc_tpu_torch import errors
+        from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
+        from incubator_brpc_tpu_torch.batching.batcher import current_batch
+        from incubator_brpc_tpu_torch.observability.span import current_span
+
+        with self._lock:
+            params = {r.message: self._store.get(r.message) for r in requests}
+        # per-row parse + validate, grouped by parameter key so mixed
+        # batches still fuse per key
+        groups: Dict[str, list] = {}
+        for i, (controller, request) in enumerate(zip(controllers, requests)):
+            w = params.get(request.message)
+            if w is None or len(getattr(w, "shape", ())) != 2:
+                controller.set_failed(
+                    errors.EREQUEST,
+                    f"no parameter matrix under key: {request.message!r}",
+                )
+                continue
+            d = int(w.shape[0])
+            raw = controller.request_attachment.to_bytes()
+            if len(raw) != d * 4:
+                controller.set_failed(
+                    errors.EREQUEST,
+                    f"Forward input must be {d} float32s ({d * 4} bytes), "
+                    f"got {len(raw)}",
+                )
+                continue
+            groups.setdefault(request.message, []).append(
+                (i, np.frombuffer(raw, np.float32))
+            )
+        ctx = current_batch()
+        for key, rows in groups.items():
+            w = params[key]
+            n = len(rows)
+            # bucket even without a batching context: direct multi-row
+            # calls would otherwise specialize the kernel per exact n,
+            # voiding the trace bound the buckets exist to enforce
+            policy = ctx.policy if ctx is not None else PS_BATCH_POLICY
+            pad_to = policy.bucket_for(n)
+            # stack on host (zero-padded to the bucket), ship once
+            X = np.zeros((max(pad_to, n), int(w.shape[0])), np.float32)
+            for j, (_, x) in enumerate(rows):
+                X[j] = x
+            try:
+                # device window: the pull below is the batch's one sync,
+                # so the section (and the span's device phase) times the
+                # upload, the product and the pull
+                span = current_span()
+                if span is not None:
+                    span.stamp("device_start_us")
+                with kernel_section("ps.forward"):
+                    out = _FORWARD_KERNEL(w, torch.from_numpy(X).to(w.device))
+                    # pull ONLY the n live rows: the pad rows never cross
+                    # the device boundary (the slice is a device view)
+                    with allowed_transfer("ps.forward-pull"):
+                        Y = (out[:n] if pad_to > n else out).cpu().numpy()
+                if span is not None:
+                    span.stamp("device_done_us")
+            except Exception as e:  # noqa: BLE001 — a failed dispatch
+                # fails ONLY this key-group's rows; other groups in the
+                # batch still execute
+                for i, _ in rows:
+                    controllers[i].set_failed(
+                        errors.EINTERNAL,
+                        f"forward failed for {key!r}: {e}",
+                    )
+                continue
+            for j, (i, _) in enumerate(rows):
+                # zero-copy attach: the row view keeps Y alive
+                controllers[i].response_attachment.append_user_data(Y[j])
+                responses[i].message = key
+        done()
+
+
+def ps_stub(channel) -> ServiceStub:
+    return ServiceStub(channel, PsService)
+
+
+# ---- client side: the shard-PER-SERVER fan-out contract ---------------------
+#
+# N PsService servers each own rows [k*d/N, (k+1)*d/N) of a parameter;
+# Forward fans out once — each shard contracts the matching slice of x
+# against its local rows and returns a PARTIAL y, merged client-side by
+# one fused sum (ops/merge.merge_partial_sum).  The channel that drives
+# the fan-out (sharded_ps_channel) is ROADMAP.md queue 1 item 5; the
+# leg and merge functions are host code and carried over.
+
+
+def ps_forward_prepare_leg(i, n, request, parent_ctrl, sub_ctrl):
+    """Slice the caller's x by shard rows: leg i carries bytes
+    [i*d/n*4, (i+1)*d/n*4) of the request attachment."""
+    raw = parent_ctrl.request_attachment.to_bytes()
+    if len(raw) % (4 * n):
+        raise ValueError(
+            f"Forward input of {len(raw)} bytes does not split into "
+            f"{n} float32 row shards"
+        )
+    chunk = len(raw) // n
+    sub_ctrl.request_attachment.append_user_data(raw[i * chunk:(i + 1) * chunk])
+    return request
+
+
+def ps_forward_merge(parent_ctrl, parent_resp, sub_ctrls, sub_resps):
+    """Sum the per-shard partial y vectors (one fused op); a failed leg
+    inside fail_limit simply contributes nothing — the degraded
+    combo-channel contract."""
+    from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
+    from incubator_brpc_tpu_torch.ops.merge import merge_partial_sum
+
+    parts = []
+    key = ""
+    for sc, sr in zip(sub_ctrls, sub_resps):
+        if sc is None or sc.failed():
+            continue
+        parts.append(
+            np.frombuffer(sc.response_attachment.to_bytes(), np.float32)
+        )
+        key = key or sr.message
+    if not parts:
+        raise ValueError("no successful shard legs to merge")
+    with allowed_transfer("ps.client-merge"):
+        y = merge_partial_sum(parts).cpu().numpy()
+    parent_ctrl.response_attachment.append_user_data(y.tobytes())
+    parent_resp.message = key
+
+
+def sharded_ps_channel(sub_channels=None, endpoints=None, fail_limit=0,
+                       timeout_ms=20000, seed=0, channel_options=None):
+    unported("sharded_ps_channel (ShardRoutedChannel)", 5)
+
+
+def scatter_param(shard_channel, key: str, w) -> None:
+    unported("scatter_param (row-scattered parameters)", 5)
+
+
+def make_training_step(mesh, dim: int = 256, batch: int = 32, lr: float = 0.01):
+    unported("the sharded training step (make_training_step)", 13)

@@ -8,6 +8,8 @@
 //        incubator_brpc_tpu/ops/transfer.py:144 _copy_csum_carry_slot_kernel (pallas_call :202)
 //   K2 copy_csum_staged (+ fold_blocks)
 //        incubator_brpc_tpu/ops/transfer.py:312 _dma_copy_csum_body          (pallas_call :388)
+//   copy_blocks
+//        incubator_brpc_tpu/ops/transfer.py:54  _copy_kernel                 (pallas_call :68)
 //
 // The function: copy a lane-aligned (m, n) payload and produce the (1, n)
 // float32 lane accumulator acc = carry + sum over row blocks b (in block
@@ -231,6 +233,37 @@ int launch_staged(const void* x, void* out, float* partial, long long m, long lo
     return (int)cudaGetLastError();
 }
 
+// ---- copy_blocks: the plain blocked copy (TPU kernel device_copy) ---------
+// The TPU kernel walks row blocks of _fit_block_rows(m, chunk_rows) rows
+// through VMEM so that the pipeline's two buffers fit; its output is the
+// input's bytes.  Nothing is carried from block to block, so on Hopper the
+// row blocks need no counterpart: the CTAs stride over the whole payload
+// in 16-byte vectors (a lane-aligned row is a multiple of 128 elements,
+// hence of 16 bytes, for every element type), each thread keeping
+// COPY_UNROLL independent loads in flight before it stores them.  Bound by
+// bytes: the payload is read once and written once.
+constexpr int COPY_THREADS = 256;
+constexpr int COPY_UNROLL = 4;
+
+__global__ void __launch_bounds__(COPY_THREADS)
+copy_blocks_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, long long nvec) {
+    const long long step = (long long)COPY_THREADS * COPY_UNROLL;
+    const long long stride = (long long)gridDim.x * step;
+    for (long long base = (long long)blockIdx.x * step + threadIdx.x; base < nvec; base += stride) {
+        uint4 v[COPY_UNROLL];
+#pragma unroll
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+            const long long i = base + (long long)u * COPY_THREADS;
+            if (i < nvec) v[u] = x[i];
+        }
+#pragma unroll
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+            const long long i = base + (long long)u * COPY_THREADS;
+            if (i < nvec) out[i] = v[u];
+        }
+    }
+}
+
 }  // namespace
 
 // dtype codes, kept in step with _DTYPE_CODES in ops/transfer.py
@@ -274,6 +307,19 @@ int copy_csum_staged(const void* x, void* out, void* partial, long long m, long 
                      int sr, int code, int grid, void* stream) {
     DISPATCH_DTYPE(code, launch_staged<T>(x, out, static_cast<float*>(partial), m, n, br, sr, grid,
                                           static_cast<cudaStream_t>(stream)))
+}
+
+// device_copy: out = x, nbytes (a multiple of 16) of 16-byte aligned memory,
+// copied by at most `max_grid` CTAs.
+int copy_blocks(const void* x, void* out, long long nbytes, int max_grid, void* stream) {
+    if (nbytes <= 0 || nbytes % 16 != 0 || max_grid <= 0) return (int)cudaErrorInvalidValue;
+    const long long nvec = nbytes / 16;
+    const long long per_cta = (long long)COPY_THREADS * COPY_UNROLL;
+    const long long need = (nvec + per_cta - 1) / per_cta;
+    const unsigned grid = (unsigned)(need < max_grid ? need : max_grid);
+    copy_blocks_kernel<<<grid, COPY_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(out), nvec);
+    return (int)cudaGetLastError();
 }
 
 const char* transfer_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

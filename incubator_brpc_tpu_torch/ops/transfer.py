@@ -12,7 +12,9 @@ The kernels are written by hand for Hopper in ``ops/csrc/transfer.cu``
   chunk and donated-slot kernels (the JAX package's three grid kernels);
 - K2 ``copy_csum_staged`` + ``fold_blocks`` — the whole frame in one
   launch of persistent CTAs staging tiles through shared memory (the
-  JAX package's double-buffered DMA kernel, ``chunk_mode="pallas"``).
+  JAX package's double-buffered DMA kernel, ``chunk_mode="pallas"``);
+- ``copy_blocks`` — the plain blocked copy, :func:`device_copy` (the JAX
+  package's ``device_copy``; no path of either package calls it).
 
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (:func:`copy_csum_plain`), a CUDA tensor launches
@@ -66,6 +68,7 @@ launches: Dict[str, int] = {
     "copy_csum_blocks": 0,
     "fold_blocks": 0,
     "copy_csum_staged": 0,
+    "copy_blocks": 0,
 }
 
 
@@ -162,6 +165,8 @@ def _kernels() -> ctypes.CDLL:
                     p, p, p, i64, i64, i32, i32, i32, i32, p,
                 ]
                 lib.copy_csum_staged.restype = i32
+                lib.copy_blocks.argtypes = [p, p, i64, i32, p]
+                lib.copy_blocks.restype = i32
                 lib.transfer_error_string.argtypes = [i32]
                 lib.transfer_error_string.restype = ctypes.c_char_p
                 _lib = lib
@@ -222,6 +227,15 @@ def _launch_copy_csum_blocks(x, out, partial, block_rows: int) -> None:
     launches["copy_csum_blocks"] += 1
 
 
+def _sm_count(device: torch.device) -> int:
+    idx = device.index
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            device
+        ).multi_processor_count
+    return _sm_counts[idx]
+
+
 def _launch_copy_csum_staged(x, out, partial, block_rows: int,
                              stage_rows: int) -> None:
     """K2 on the current stream: the same outputs as K1 pass 1 from ONE
@@ -230,13 +244,8 @@ def _launch_copy_csum_staged(x, out, partial, block_rows: int,
     _check_operand(out, "out", x)
     lib = _kernels()
     m, n = x.shape
-    idx = x.device.index
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            x.device
-        ).multi_processor_count
     items = (m // block_rows) * (n // _LANE)
-    grid = min(items, 2 * _sm_counts[idx])
+    grid = min(items, 2 * _sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.copy_csum_staged(
@@ -294,9 +303,57 @@ def _copy_csum(x, carry, block_rows: int, out=None):
     return out, _launch_fold_blocks(partial, carry)
 
 
+def _launch_copy_blocks(x: torch.Tensor, out: torch.Tensor) -> None:
+    """copy_blocks on the current stream: out = x, byte for byte, by at
+    most 8 CTAs of 256 threads per SM (a full SM's worth of threads)."""
+    _check_operand(x, "payload", x)
+    _check_operand(out, "out", x)
+    lib = _kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.copy_blocks(
+            x.data_ptr(), out.data_ptr(), x.nbytes, 8 * _sm_count(x.device),
+            stream,
+        )
+    _check_rc(lib, rc, "copy_blocks")
+    launches["copy_blocks"] += 1
+
+
 # ---------------------------------------------------------------------------
 # entry points (same names and contracts as the JAX package's)
 # ---------------------------------------------------------------------------
+
+
+def device_copy_plain(x: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``copy_blocks``: a fresh copy of ``x``,
+    or ``x`` copied into ``out``."""
+    if out is None:
+        return torch.empty_like(x).copy_(x)
+    _check_operand(out, "out", x)
+    return out.copy_(x)
+
+
+def device_copy(x: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Device-to-device copy of a 2D ``(m, n)`` tensor of any dtype, n a
+    multiple of 128 — the JAX package's ``device_copy``, into a fresh
+    tensor or ``out``.  That one's ``chunk_rows`` only paced the TPU's
+    VMEM pipeline and changed no byte of the output, so it has no
+    counterpart here."""
+    if x.ndim != 2 or x.shape[0] <= 0 or x.shape[1] % _LANE:
+        raise ValueError(
+            f"device_copy takes a 2D (m, n) tensor with n % {_LANE} == 0, "
+            f"got shape {tuple(x.shape)}"
+        )
+    if x.device.type == "cpu":
+        return device_copy_plain(x, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"no copy kernel for device {x.device}")
+    if out is None:
+        out = torch.empty_like(x)
+    _launch_copy_blocks(x, out)
+    return out
 
 
 def device_copy_with_checksum(x: torch.Tensor, chunk_rows: int = 256):

@@ -6,10 +6,10 @@ per-method status/limiters, listens and starts the Acceptor, and
 exposes the server on the ICI fabric (``start_ici``) over a torch
 device.  One port speaks every registered protocol.
 
+Micro-batching (``enable_batching``, ``batching/``) is carried over.
 Not carried over yet, each raising NotImplementedError when asked for:
 the native C++ engine and TLS (ROADMAP.md queue 1 item 12), the
-builtin observability pages (item 10), micro-batching (item 4) and
-rpc_dump sampling (item 12).
+builtin observability pages (item 10) and rpc_dump sampling (item 12).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from incubator_brpc_tpu_torch.server.service import MethodSpec, Service
 from incubator_brpc_tpu_torch.transport.acceptor import Acceptor
 from incubator_brpc_tpu_torch.unported import unported
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
-from incubator_brpc_tpu_torch.utils.logging import log_error, log_info
+from incubator_brpc_tpu_torch.utils.logging import log_error, log_info, log_warning
 
 
 @dataclass
@@ -133,9 +133,7 @@ class Server:
         self._session_local_lock = threading.Lock()
         self._thread_local_store = threading.local()
         self._ici_port = None
-        # full_name -> Batcher; stays empty until micro-batching is
-        # ported (the protocol's batching gate tests it per request)
-        self._batchers: Dict[str, object] = {}
+        self._batchers: Dict[str, object] = {}  # full_name -> Batcher
         from incubator_brpc_tpu_torch.server.admission import AdmissionController
 
         # every dispatch path sheds through this one decision point
@@ -209,13 +207,89 @@ class Server:
             log_error("service method %s raised: %r", method.full_name, e)
             return e
 
-    # ---- micro-batching (ROADMAP.md queue 1 item 4) ------------------------
+    # ---- micro-batching (batching/, docs/batching.md) ----------------------
     def _init_batchers(self):
-        if self.options.enable_batching:
-            unported("micro-batching (enable_batching)", 4)
+        """Build Batchers for every @batched_method with an enabled
+        policy (ServerOptions.batch_policies overrides the decorator's
+        default; None/0 there force-disables one method)."""
+        if not self.options.enable_batching:
+            return
+        overrides = self.options.batch_policies or {}
+        batchable = {n for n, s in self._methods.items()
+                     if s.batch_fn is not None}
+        for unknown in sorted(set(overrides) - batchable):
+            # a typo'd key would otherwise silently leave the intended
+            # method on its decorator default
+            log_warning(
+                "batch_policies[%r] matches no registered "
+                "@batched_method (batchable: %s)",
+                unknown, sorted(batchable),
+            )
+        for full_name, spec in self._methods.items():
+            if spec.batch_fn is None:
+                continue
+            if full_name in self._batchers:
+                # already live (start_ici alongside start, or a restart):
+                # rebuilding would stop+drain a serving batcher and zero
+                # its counters for nothing
+                continue
+            policy = overrides.get(full_name, spec.batch_policy)
+            if policy in (None, 0):
+                continue  # explicit per-method off
+            self.enable_method_batching(full_name, policy)
 
     def enable_method_batching(self, full_name: str, policy=None):
-        unported("micro-batching (enable_method_batching)", 4)
+        """(Re)build the Batcher for one @batched_method; returns it,
+        or None when the method is unknown/unbatchable or the policy is
+        off (max_batch_size <= 1).  Runtime-callable: the /batching
+        builtin tunes live policies through here."""
+        from incubator_brpc_tpu_torch.batching.batcher import Batcher
+        from incubator_brpc_tpu_torch.batching.policy import BatchPolicy
+
+        spec = self._methods.get(full_name)
+        if spec is None or spec.batch_fn is None:
+            return None
+        # validate the replacement policy FIRST: a bad one must fail
+        # cleanly, not tear down the live batcher on its way to raising
+        # (which would leave the method silently unbatched).  The
+        # Batcher itself is built only after the old one stops — its
+        # exposed metric variables share the per-method names the old
+        # stop() hides.
+        if policy is not None and not isinstance(policy, (BatchPolicy, dict)):
+            # an explicit falsy value (0, False) = force-off, same
+            # convention as ServerOptions.batch_policies; only None
+            # means "use the decorator default".  Truthy garbage (a
+            # bare int batch size, a string) must raise, not silently
+            # tear the live batcher down as "off".
+            if policy:
+                raise TypeError(
+                    f"policy must be a BatchPolicy, a policy dict, None "
+                    f"(decorator default) or falsy (force-off); got "
+                    f"{policy!r}"
+                )
+            policy = False
+        else:
+            if isinstance(policy, dict):
+                policy = BatchPolicy.from_dict(policy)
+            policy = policy or spec.batch_policy or BatchPolicy()
+            # private copy: the Batcher's policy is runtime-tunable
+            # (POST /batching) and must never write through to a
+            # decorator-level object shared across methods and future
+            # servers
+            policy = BatchPolicy.from_dict(policy.to_dict())
+        old = self._batchers.pop(full_name, None)
+        if old is not None:
+            old.stop()
+        if policy is False or not policy.enabled:
+            return None  # the off config: existing dispatch path
+        batcher = Batcher(
+            full_name,
+            spec.batch_fn,
+            policy,
+            inline=self.options.usercode_in_dispatcher,
+        )
+        self._batchers[full_name] = batcher
+        return batcher
 
     # ---- admission control (server/admission.py, docs/overload.md) ---------
     def set_admission_policy(self, policy) -> None:
@@ -241,8 +315,15 @@ class Server:
         return self._batchers.get(full_name)
 
     def submit_batched(self, method, ctrl, request, response, done) -> bool:
-        """False: no method is batched until micro-batching is ported."""
-        return False
+        """Hand one parsed request to the method's Batcher.  False =
+        not batched (no batcher, or it stopped) — the caller runs the
+        existing dispatch path.  (The JAX package also defers rows of a
+        native read burst into one submit_many; the native engine is
+        ROADMAP.md queue 1 item 12.)"""
+        batcher = self._batchers.get(method.full_name)
+        if batcher is None:
+            return False
+        return batcher.submit(ctrl, request, response, done)
 
     def services(self) -> Dict[str, Service]:
         return dict(self._services)
@@ -342,7 +423,7 @@ class Server:
         from incubator_brpc_tpu_torch.parallel.ici import get_fabric
         from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
 
-        self._init_batchers()  # raises before the port is exposed
+        self._init_batchers()
         device = device_for_chip(chip_id, device)
         try:
             self._ici_port = get_fabric().register(

@@ -10,7 +10,9 @@ a machine with the card and without JAX:
 Tolerances: copies byte-equal; every mode's accumulator and checksum
 bit-equal to the whole-frame kernel's; the kernels against the plain
 version within 1e-5 relative to sum|x| per lane (exact for
-integer-valued payloads).
+integer-valued payloads); a batched Forward row within 2e-6 x
+(|x| @ |W|) of the float64 product (float32 with TF32 off; a TF32
+product would fail it).
 """
 
 import numpy as np
@@ -74,7 +76,8 @@ def test_kernels_match_plain(cuda_device, m, n, chunk_bytes):
     x = torch.from_numpy(x_np).to(cuda_device)
     TT.reset_launch_counts()
     acc = _all_modes_bit_equal(x, chunk_bytes)
-    assert all(v > 0 for v in TT.launches.values()), TT.launches
+    assert all(TT.launches[k] > 0 for k in
+               ("copy_csum_blocks", "fold_blocks", "copy_csum_staged")), TT.launches
     _, plain_acc = TT.copy_csum_plain(x, None, TT._fit_block_rows(m))
     scale = x.abs().sum(0, keepdim=True)
     assert torch.all((acc - plain_acc).abs() <= RTOL * scale)
@@ -124,10 +127,14 @@ def test_staged_kernel_launches_on_every_card(cuda_device):
 
 
 @pytest.mark.parametrize("mode,per_hop", [
-    ("off", {"copy_csum_blocks": 1, "fold_blocks": 1, "copy_csum_staged": 0}),
-    ("fused", {"copy_csum_blocks": 1, "fold_blocks": 1, "copy_csum_staged": 0}),
-    ("pipelined", {"copy_csum_blocks": 4, "fold_blocks": 4, "copy_csum_staged": 0}),
-    ("pallas", {"copy_csum_blocks": 0, "fold_blocks": 1, "copy_csum_staged": 1}),
+    ("off", {"copy_csum_blocks": 1, "fold_blocks": 1, "copy_csum_staged": 0,
+                 "copy_blocks": 0}),
+    ("fused", {"copy_csum_blocks": 1, "fold_blocks": 1, "copy_csum_staged": 0,
+                 "copy_blocks": 0}),
+    ("pipelined", {"copy_csum_blocks": 4, "fold_blocks": 4, "copy_csum_staged": 0,
+                 "copy_blocks": 0}),
+    ("pallas", {"copy_csum_blocks": 0, "fold_blocks": 1, "copy_csum_staged": 1,
+                 "copy_blocks": 0}),
 ])
 def test_echo_on_card_runs_the_kernels(cuda_device, mode, per_hop):
     from incubator_brpc_tpu_torch import Channel, ChannelOptions, Controller, Server
@@ -159,3 +166,77 @@ def test_echo_on_card_runs_the_kernels(cuda_device, mode, per_hop):
     finally:
         srv.stop()
         fab.chunk_mode, fab.chunk_bytes = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8,
+                                   torch.float64, torch.bool])
+@pytest.mark.parametrize("shape", [(8192, 2048), (1000, 128), (1, 384), (3, 640)])
+def test_copy_blocks_matches_plain(cuda_device, shape, dtype):
+    g = torch.Generator().manual_seed(shape[0])
+    x = torch.randint(0, 256, shape, generator=g).to(dtype).to(cuda_device)
+    TT.reset_launch_counts()
+    out = TT.device_copy(x)
+    slot = torch.empty_like(x)
+    into = TT.device_copy(x, out=slot)
+    torch.cuda.synchronize()
+    assert TT.launches["copy_blocks"] == 2
+    assert out.data_ptr() != x.data_ptr() and into.data_ptr() == slot.data_ptr()
+    plain = TT.device_copy_plain(x)
+    for o in (out, into):
+        assert torch.equal(o.view(torch.uint8), plain.view(torch.uint8))
+
+
+def test_k1_at_the_full_width_w(cuda_device):
+    """The PS path's W: (6144, 6144) float32, 48 column tiles x 24 row
+    blocks = 1152 CTAs of K1, and a (24, 6144) partial for the fold."""
+    g = torch.Generator(device=cuda_device).manual_seed(6144)
+    w = torch.randn((6144, 6144), generator=g, device=cuda_device)
+    TT.reset_launch_counts()
+    acc = _all_modes_bit_equal(w, 8 << 20)
+    _, plain_acc = TT.copy_csum_plain(w, None, TT._fit_block_rows(6144))
+    assert torch.all((acc - plain_acc).abs() <= RTOL * w.abs().sum(0, keepdim=True))
+
+
+def test_batched_forward_on_the_card(cuda_device):
+    import threading
+
+    from incubator_brpc_tpu_torch import Channel, ChannelOptions, Controller, Server, ServerOptions
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    d, rows = 1024, 8
+    g = torch.Generator().manual_seed(11)
+    w = (torch.randn((d, d), generator=g) / d ** 0.5).numpy()
+    xs = torch.randn((rows, d), generator=g).numpy()
+    svc = PsService()  # the card by default
+    svc.put_param("w", w)
+    assert svc._store["w"].device.type == "cuda"
+    srv = Server(ServerOptions(enable_batching=True))
+    srv.add_service(svc)
+    assert srv.start(0) == 0
+    ys = [None] * rows
+    barrier = threading.Barrier(rows, timeout=20)
+    try:
+        def worker(i):
+            ch = Channel(ChannelOptions(timeout_ms=20000))
+            assert ch.init(f"127.0.0.1:{srv.port}") == 0
+            barrier.wait()
+            c = Controller()
+            c.request_attachment.append_user_data(xs[i].tobytes())
+            ps_stub(ch).Forward(c, EchoRequest(message="w"))
+            assert not c.failed(), c.error_text()
+            ys[i] = np.frombuffer(c.response_attachment.to_bytes(), np.float32)
+            ch.close()
+
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(rows)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert srv.batcher("PsService.Forward").rows == rows
+    finally:
+        srv.stop()
+    ref = xs.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(xs).astype(np.float64) @ np.abs(w).astype(np.float64)
+    assert np.all(np.abs(np.stack(ys) - ref) <= 2e-6 * scale)

@@ -270,3 +270,62 @@ def test_slot_must_match_the_payload():
             TT.device_copy_with_checksum_chunk_into(x, carry, bad, 64)
         with pytest.raises(ValueError):
             TT.device_copy_with_checksum_pallas(x, slot=bad)
+
+
+# ---- TPU kernel #1: device_copy ----------------------------------------------
+
+
+def _jax_copy_interpret(x_np, chunk_rows=256):
+    """The JAX package's ``_copy_kernel`` over the grid ``device_copy``
+    builds, in Pallas interpret mode (``device_copy`` itself refuses the
+    CPU)."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    m, n = x_np.shape
+    rows = JT._fit_block_rows(m, chunk_rows)
+    return np.asarray(pl.pallas_call(
+        JT._copy_kernel,
+        out_shape=jax.ShapeDtypeStruct(x_np.shape, x_np.dtype),
+        grid=(m // rows,),
+        in_specs=[pl.BlockSpec((rows, n), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((rows, n), lambda i: (i, 0)),
+        interpret=True,
+    )(jnp.asarray(x_np)))
+
+
+@pytest.mark.parametrize("shape,chunk_rows", [
+    ((512, 256), 256),   # two full blocks
+    ((1000, 128), 256),  # rows fall to 8
+    ((7, 384), 256),     # rows fall to 1
+    ((96, 128), 32),     # a smaller chunk_rows
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])
+def test_device_copy_byte_equal_to_jax_copy_kernel(shape, chunk_rows, dtype):
+    from incubator_brpc_tpu_torch.convert import tensor_from_reference
+
+    rng = np.random.RandomState(shape[0] + chunk_rows)
+    if dtype == "uint8":
+        x_np = rng.randint(0, 256, size=shape).astype(np.uint8)
+    else:
+        x_np = np.asarray(jnp.asarray(rng.randn(*shape).astype(np.float32)).astype(dtype))
+    want = _jax_copy_interpret(x_np, chunk_rows)
+    x = tensor_from_reference(x_np, "cpu")
+    TT.reset_launch_counts()
+    out = TT.device_copy(x)
+    assert out.data_ptr() != x.data_ptr() and out.dtype == x.dtype
+    assert out.view(torch.uint8).numpy().tobytes() == want.view(np.uint8).tobytes()
+    slot = torch.empty_like(x)
+    assert TT.device_copy(x, out=slot).data_ptr() == slot.data_ptr()
+    assert torch.equal(slot.view(torch.uint8), out.view(torch.uint8))
+    assert TT.launches["copy_blocks"] == 0  # the CPU runs the plain version
+
+
+def test_device_copy_refuses_what_the_tpu_kernel_refuses():
+    for bad in (torch.zeros((4, 100)), torch.zeros((512,)), torch.zeros((0, 128))):
+        with pytest.raises(ValueError):
+            TT.device_copy(bad)
+    with pytest.raises(ValueError):  # out of another shape
+        TT.device_copy(torch.zeros((8, 128)), out=torch.empty((4, 128)))
+    with pytest.raises(ValueError):  # neither the CPU nor a card
+        TT.device_copy(torch.empty((8, 128), device="meta"))
