@@ -15,7 +15,11 @@ file.  Phases, each fatal on failure:
              chunks, K1 into a slot, K1 from a random carry, the fused
              chunk path, K2 and K2 into a slot bit-equal to the plain
              version's, which adds in the kernels' order; copy_blocks
-             byte-equal, into its out= buffer or a fresh one;
+             byte-equal, into its out= buffer or a fresh one.  The shapes
+             are every main path's: the echo frame, the PS's W, and the
+             cache and stream paths' lane views (a 1 MiB value as (256,
+             4096) u8, the 4 KB value as (1, 4096) u8, the DMGET stack as
+             (32, 1048576) u8, a stream frame as (256, 1024) f32);
 3. echo    — the first main path: a 64 MB float32 (8192, 2048) tensor
              echoed through Server.start_ici / Channel under every chunk
              mode (off, fused, pipelined, pallas).  Per mode: the
@@ -36,12 +40,41 @@ file.  Phases, each fatal on failure:
              control product with TF32 on must fail that same check.
              Prints Put/Get time and GB/s, qps/p50/p99 per point, the
              on/off speedup and a profiler window's device-busy share;
-5. times   — each kernel's time at the main path's shapes beside its
+5. cache   — the third main path: an HBMCacheService behind
+             ServerOptions.redis_service on Server.start_ici over a 1 GiB
+             store on the card.  2048 SETs of 1 MiB device values over
+             ici:// (one K1 per hop; the store adopts each delivered
+             tensor), so LRU eviction runs at scale and evictions and
+             hbm_used must equal a plain LRU model's; GETs come back as
+             fresh CUDA tensors with equal bytes (one K1 per hop); a
+             DMGET of 32 keys is one fused gather and one 32 MiB stacked
+             reply (one K1 per hop); a DMSET writes 32 keys; a TCP GET
+             spills the exact bytes; a 4 KB value goes through both
+             lanes.  Prints median SET/GET/DMGET times, launches,
+             evictions, hbm_used and a device-busy share.  Then a stream
+             over ici:// echoes 1 MiB device frames (one K1 per frame per
+             hop);
+6. serve   — the fourth main path: disaggregated prefill/decode serving
+             (bench_disagg_serving's 3 layers, 2 decode replicas, 32
+             tokens a session, parallelism 1, 8 and 32, a 64 MB store) at
+             dim = 6144 against the monolithic DecodeLoop.  Disagg tokens
+             equal the monolithic and the solo run at parallelism 1;
+             prefill runs once per session; each KV pull is one fused
+             gather; one checkpoint migration emits every token once and
+             equals the unmigrated run.  Prints tokens/s and median TTFT
+             of both, steps, max_fused, how many tokens at 8 and 32
+             differ from each session's solo run (cuBLAS may pick another
+             kernel per row count), and the p = 32 device-busy share.  The
+             decode step at buckets 1, 8 and 32 is held to float64 as the
+             Forward product is (states and row sums), and a TF32 step
+             must fail that check;
+7. times   — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(), K1 on the PS path's
              W and on one 8 MB chunk with a carry (the pipelined mode's
              launch, walked over a 64 MB frame so that the L2 is cold,
-             as on the path); the Forward product (torch.matmul, an XLA
-             op in the reference) per bucket.
+             as on the path), and on a 1 MiB cache value and the 32 MiB
+             DMGET stack; the Forward product and the decode step
+             (torch.matmul, XLA ops in the reference) per bucket.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Without a card, or without the
@@ -74,6 +107,25 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PS_DIM = 6144  # bench.py:2044, bench_batched_device_op's dim
 PS_RTOL = 2e-6  # Forward y vs float64, relative to |x| @ |W|: f32 passes, TF32 fails
+# the cache path (bench.py:1807 bench_hbm_cache's 1 MB and 4 KB values)
+# at a cache node's size: 1 GiB of values, twice that SET through it
+CACHE_BUDGET = 1 << 30
+CACHE_VALUE = 1 << 20
+CACHE_SETS = 2048
+CACHE_GETS = 32
+DMGET_KEYS = 32
+CACHE_DMGETS = 8
+CACHE_TCP_GETS = 8
+SMALL_VALUE = 4096
+STREAM_FRAMES = 8
+# the serving path (bench.py:2732-2840 bench_disagg_serving's traffic)
+# at the served matrix's width, the PS's d (bench.py:2044)
+SERVE_DIM = 6144
+SERVE_LAYERS = 3
+SERVE_REPLICAS = 2
+SERVE_TOKENS = 32
+SERVE_P = (1, 8, 32)
+SERVE_STORE = 64 << 20
 SOURCE = "incubator_brpc_tpu_torch/ops/csrc/transfer.cu"
 REPLACES = {
     "copy_csum_blocks": "incubator_brpc_tpu/ops/transfer.py:112 (+:176, :202)",
@@ -92,6 +144,13 @@ PER_HOP = {
 }
 for _per in PER_HOP.values():
     _per["copy_blocks"] = 0
+
+
+def past_f64(got, ref, scale):
+    """The products' check, |got - ref| <= PS_RTOL * scale per entry with
+    ref in float64: (entries past it, worst |got - ref| / scale)."""
+    err = (got.double() - ref).abs()
+    return int((err > PS_RTOL * scale).sum()), (err / scale).max().item()
 
 
 def fail(msg: str) -> None:
@@ -181,6 +240,13 @@ def phase_kernels(torch, T):
         ((1000, 384), torch.uint8),
         ((512, 256), torch.int32),
         ((768, 512), torch.float16),
+        # the cache and stream paths' lane views: a 1 MiB value, the 4 KB
+        # value, the 32-key DMGET stack (one K1 over 16384 column tiles),
+        # a stream frame
+        ((256, 4096), torch.uint8),
+        ((1, 4096), torch.uint8),
+        ((DMGET_KEYS, CACHE_VALUE), torch.uint8),
+        ((256, 1024), torch.float32),
     ]
     errs = {k: 0.0 for k in T.launches}
     main_csum = None
@@ -523,8 +589,7 @@ def phase_ps(torch, T):
         def off_by(got, idx):
             """Forward's check, |y - ref| <= PS_RTOL * (|x| @ |W|) per
             output: (outputs past it, worst |y - ref| / (|x| @ |W|))."""
-            err = (got.double() - ref[idx]).abs()
-            return int((err > PS_RTOL * scale[idx]).sum()), (err / scale[idx]).max().item()
+            return past_f64(got, ref[idx], scale[idx])
 
         def verify(ys):
             idx = torch.tensor([i for i, _ in ys], device=port_dev)
@@ -596,7 +661,11 @@ def phase_ps(torch, T):
         print(f"[profile] ps forward p32 on: wall {wall_us:.0f} us, device busy "
               f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top "
               + ", ".join(f"{name[:48]} {us:.0f} us" for name, us in top))
-        products = phase_products(torch, w_dev)
+        products = phase_products(
+            torch, _FORWARD_KERNEL, w_dev, "ps_forward",
+            "incubator_brpc_tpu_torch/models/parameter_server.py",
+            "incubator_brpc_tpu/models/parameter_server.py:101 "
+            "(x @ w under jax.jit: an XLA op, not a TPU kernel)")
     finally:
         for c in channels:
             c.close()
@@ -604,36 +673,516 @@ def phase_ps(torch, T):
     return counts, products
 
 
-def phase_products(torch, w, buckets=(1, 8, 32), iters=20):
-    """The Forward product (bucket, d) @ W alone, per bucket: device time
-    from the profiler, beside its bound."""
+def phase_products(torch, step, w, name, source, replaces, row_bytes=0, row_ops=0,
+                   buckets=(1, 8, 32), iters=20):
+    """A product step(w, x) of x (bucket, d) with W alone, per bucket:
+    device time from the profiler, beside its bound.  ``row_bytes`` and
+    ``row_ops`` are what the step moves and does per row beyond x @ W."""
     d = w.shape[0]
-    from incubator_brpc_tpu_torch.models.parameter_server import _FORWARD_KERNEL
-
     rows = []
     for b in buckets:
         x = torch.randn((b, d), generator=torch.Generator(device=w.device).manual_seed(b),
                         device=w.device)
-        _FORWARD_KERNEL(w, x)
-        _, busy_us, by_name = device_profile(
-            torch, lambda: [_FORWARD_KERNEL(w, x) for _ in range(iters)])
-        check(busy_us > 0, f"the profiler saw no product at bucket {b}")
+        step(w, x)
+        _, busy_us, by_name = device_profile(torch, lambda: [step(w, x) for _ in range(iters)])
+        check(busy_us > 0, f"the profiler saw no {name} at bucket {b}")
         ms = busy_us / iters / 1e3
-        t_bytes = (w.nbytes + 2 * b * d * 4) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * b * d * d / F32_OPS_PER_S * 1e3
+        t_bytes = (w.nbytes + 2 * b * d * 4 + b * row_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = (2 * b * d * d + b * row_ops) / F32_OPS_PER_S * 1e3
         kernel = max(by_name, key=by_name.get)
         rows.append({
-            "name": f"ps_forward_b{b}", "route": "torch.matmul",
-            "source": "incubator_brpc_tpu_torch/models/parameter_server.py",
-            "replaces": "incubator_brpc_tpu/models/parameter_server.py:101 "
-                        "(x @ w under jax.jit: an XLA op, not a TPU kernel)",
-            "ms": ms, "bound_ms": max(t_bytes, t_ops),
+            "name": f"{name}_b{b}", "route": "torch.matmul", "source": source,
+            "replaces": replaces, "ms": ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "kernel": kernel[:80],
         })
-        print(f"[times] Forward product b={b:2} d={d}: {ms:.4f} ms (bound "
+        print(f"[times] {name} b={b:2} d={d}: {ms:.4f} ms (bound "
               f"{max(t_bytes, t_ops):.4f} ms by {rows[-1]['bound_by']}); {kernel[:60]}")
     return rows
+
+
+class LruModel:
+    """The cache store's budget and LRU order, written plainly: what
+    its evictions and bytes must be after the same SETs and GETs."""
+
+    def __init__(self, budget):
+        self.budget, self.sizes, self.evictions = budget, {}, 0
+
+    def set(self, key, n):
+        self.sizes.pop(key, None)
+        while sum(self.sizes.values()) + n > self.budget and self.sizes:
+            del self.sizes[next(iter(self.sizes))]
+            self.evictions += 1
+        self.sizes[key] = n
+
+    def touch(self, key):
+        if key in self.sizes:
+            self.sizes[key] = self.sizes.pop(key)
+
+    @property
+    def used(self):
+        return sum(self.sizes.values())
+
+
+def median_ms(ts):
+    return statistics.median(ts) * 1e3
+
+
+def phase_cache(torch, T):
+    """The third main path: the HBM cache tier at a cache node's size.
+    Returns the launch counts of the path."""
+    from incubator_brpc_tpu_torch.analysis.device_witness import transfer_counts
+    from incubator_brpc_tpu_torch.cache import HBMCacheService, HBMCacheStore
+    from incubator_brpc_tpu_torch.cache import store as cache_store
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.observability.profiling import kernel_snapshot
+    from incubator_brpc_tpu_torch.protocols import redis as R
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    store = HBMCacheStore(CACHE_BUDGET)  # the card by default
+    check(store.device.type == "cuda", f"cache store on {store.device}")
+    svc = HBMCacheService(store=store)
+    srv = Server(ServerOptions(redis_service=svc))
+    check(srv.start_ici(0, 61) == 0, "start_ici failed")
+    tcp_srv = Server(ServerOptions(redis_service=svc))  # the host lane, same store
+    check(tcp_srv.start(0) == 0, "tcp start failed")
+    dev = srv._ici_port.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    vals = torch.randint(0, 256, (CACHE_SETS, CACHE_VALUE), generator=g,
+                         dtype=torch.uint8, device=dev)
+    key = lambda i: b"v%05d" % i  # noqa: E731
+    model = LruModel(CACHE_BUDGET)
+    channels = []
+
+    def rcall(ch, *commands):
+        req = R.RedisRequest()
+        for cmd in commands:
+            req.add_command(*cmd)
+        resp = R.RedisResponse()
+        c = Controller()
+        c.timeout_ms = 60000
+        t0 = time.perf_counter()
+        ch.call_method(R.redis_method_spec(), c, req, resp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(not c.failed(), f"redis call {commands[0][0]} failed: {c.error_text()}")
+        return resp, dt
+
+    try:
+        ch = Channel(ChannelOptions(protocol="redis", timeout_ms=60000, ici_device=dev))
+        check(ch.init("ici://slice0/chip61") == 0, "ici channel init failed")
+        tcp = Channel(ChannelOptions(protocol="redis", timeout_ms=60000))
+        check(tcp.init(f"127.0.0.1:{tcp_srv.port}") == 0, "tcp channel init failed")
+        channels += [ch, tcp]
+        ev0 = cache_store.cache_evictions.get_value()
+
+        T.reset_launch_counts()  # the cache path's run starts here
+        # ---- SETs: 2048 device values of 1 MiB over ici:// ------------
+        set_s = []
+        for i in range(CACHE_SETS):
+            resp, dt = rcall(ch, ("SET", key(i), vals[i]))
+            check(resp.reply(0).value == "OK", f"SET {i}: {resp.reply(0).value!r}")
+            set_s.append(dt)
+            model.set(key(i), CACHE_VALUE)
+        n_set = dict(T.launches)
+        check(n_set["copy_csum_blocks"] == CACHE_SETS,
+              f"{n_set} for {CACHE_SETS} SET hops: expected 1 K1 per hop")
+        evictions = cache_store.cache_evictions.get_value() - ev0
+        check(evictions == model.evictions == CACHE_SETS - CACHE_BUDGET // CACHE_VALUE,
+              f"evictions {evictions}, expected {model.evictions}")
+        check(store.hbm_used == model.used == CACHE_BUDGET,
+              f"hbm_used {store.hbm_used}, expected {model.used}")
+        check(store.keys() == list(model.sizes), "LRU order differs from the model")
+        newest = store.get(key(CACHE_SETS - 1))
+        check(newest.device == dev and newest.data_ptr() != vals[CACHE_SETS - 1].data_ptr()
+              and newest.untyped_storage().nbytes() == CACHE_VALUE,
+              "the store must adopt the fresh 1 MiB tensor the fabric delivered")
+
+        # ---- GET over ici:// --------------------------------------------
+        T.reset_launch_counts()
+        get_s = []
+        for j in range(CACHE_GETS):
+            i = CACHE_SETS - 1 - j
+            resp, dt = rcall(ch, ("GET", key(i)))
+            model.touch(key(i))
+            arr = resp.reply(0).device_array()
+            check(arr is not None and arr.is_cuda and arr.device == dev,
+                  "ICI GET must return a CUDA tensor")
+            check(arr.data_ptr() != store.get(key(i)).data_ptr(),
+                  "ICI GET must return a fresh tensor")
+            check(torch.equal(arr, vals[i]), f"GET {i} returned other bytes than were SET")
+            get_s.append(dt)
+        n_get = dict(T.launches)
+        check(n_get["copy_csum_blocks"] == CACHE_GETS,
+              f"{n_get} for {CACHE_GETS} GET hops: expected 1 K1 per hop")
+
+        # ---- DMGET of 32 same-length keys over ici:// --------------------
+        T.reset_launch_counts()
+        dm_keys = [key(i) for i in range(CACHE_SETS - DMGET_KEYS, CACHE_SETS)]
+        dmget_s = []
+        for _ in range(CACHE_DMGETS):
+            gathers0 = kernel_snapshot().get("fused.cache.mget_gather", {}).get("executions", 0)
+            resp, dt = rcall(ch, ("DMGET", *dm_keys))
+            gathers = kernel_snapshot()["fused.cache.mget_gather"]["executions"] - gathers0
+            for k in dm_keys:
+                model.touch(k)
+            fused, lengths, payload = resp.reply(0).value
+            stacked = payload.device_array()
+            check(fused.value == 1 and gathers == 1, f"DMGET fused={fused.value}, "
+                  f"{gathers} gathers: expected one fused gather")
+            check([x.value for x in lengths.value] == [CACHE_VALUE] * DMGET_KEYS,
+                  "DMGET lengths")
+            check(stacked is not None and stacked.is_cuda
+                  and tuple(stacked.shape) == (DMGET_KEYS, CACHE_VALUE),
+                  f"DMGET payload {None if stacked is None else tuple(stacked.shape)}")
+            check(torch.equal(stacked, vals[CACHE_SETS - DMGET_KEYS:]),
+                  "DMGET rows differ from what was SET")
+            dmget_s.append(dt)
+        n_dmget = dict(T.launches)
+        check(n_dmget["copy_csum_blocks"] == CACHE_DMGETS,
+              f"{n_dmget} for {CACHE_DMGETS} DMGET reply hops: expected 1 K1 per hop")
+
+        # ---- DMSET of 32 keys over ici:// --------------------------------
+        T.reset_launch_counts()
+        pairs = []
+        for i in range(DMGET_KEYS):
+            pairs.extend((b"dm%02d" % i, vals[i]))
+            model.set(b"dm%02d" % i, CACHE_VALUE)
+        resp, dmset_dt = rcall(ch, ("DMSET", *pairs))
+        check(resp.reply(0).value == DMGET_KEYS, f"DMSET stored {resp.reply(0).value}")
+        n_dmset = dict(T.launches)
+        for i in range(DMGET_KEYS):
+            check(torch.equal(store.get(b"dm%02d" % i), vals[i]), f"DMSET key {i} differs")
+
+        # ---- the TCP lane: GET spills to host bytes -----------------------
+        T.reset_launch_counts()
+        spills0 = transfer_counts().get("cache.host-spill", 0)
+        tcp_s = []
+        host_ref = vals[CACHE_SETS - 1].cpu().numpy().tobytes()
+        for _ in range(CACHE_TCP_GETS):
+            resp, dt = rcall(tcp, ("GET", key(CACHE_SETS - 1)))
+            model.touch(key(CACHE_SETS - 1))
+            r = resp.reply(0)
+            check(r.device_array() is None and r.bytes_value() == host_ref,
+                  "TCP GET must spill the exact bytes")
+            tcp_s.append(dt)
+        spills = transfer_counts().get("cache.host-spill", 0) - spills0
+        check(spills == CACHE_TCP_GETS, f"{spills} host spills for {CACHE_TCP_GETS} TCP GETs")
+        n_tcp = dict(T.launches)
+        check(n_tcp["copy_csum_blocks"] == 0, f"TCP GETs launched {n_tcp}")
+
+        # ---- a 4 KB value through both lanes --------------------------------
+        T.reset_launch_counts()
+        small = bytes(range(256)) * (SMALL_VALUE // 256)
+        rcall(tcp, ("SET", b"small", small))  # host ingest: one h2d copy
+        model.set(b"small", SMALL_VALUE)
+        small_ici, small_tcp = [], []
+        for _ in range(CACHE_GETS):
+            resp, dt = rcall(ch, ("GET", b"small"))
+            arr = resp.reply(0).device_array()
+            check(arr is not None and arr.is_cuda and arr.cpu().numpy().tobytes() == small,
+                  "4 KB ICI GET")
+            small_ici.append(dt)
+            resp, dt = rcall(tcp, ("GET", b"small"))
+            check(resp.reply(0).bytes_value() == small, "4 KB TCP GET")
+            small_tcp.append(dt)
+            model.touch(b"small")
+        n_small = dict(T.launches)
+        check(n_small["copy_csum_blocks"] == CACHE_GETS,
+              f"{n_small} for {CACHE_GETS} 4 KB ICI GETs: expected 1 K1 per hop")
+        evictions = cache_store.cache_evictions.get_value() - ev0
+        check(evictions == model.evictions and store.hbm_used == model.used
+              and store.keys() == list(model.sizes),
+              f"after DMSET and the 4 KB SET: evictions {evictions} (model "
+              f"{model.evictions}), hbm_used {store.hbm_used} (model {model.used})")
+        counts = {k: n_set[k] + n_get[k] + n_dmget[k] + n_dmset[k] + n_tcp[k] + n_small[k]
+                  for k in T.launches}  # ... and ends here
+
+        mb, size = CACHE_VALUE / 1e6, f"{CACHE_VALUE >> 10} KiB"
+        print(f"[cache] store {CACHE_BUDGET >> 20} MiB on {dev}: {CACHE_SETS} SETs of {size} over "
+              f"ici://, {median_ms(set_s):.3f} ms median [{min(set_s) * 1e3:.3f}, "
+              f"{max(set_s) * 1e3:.3f}], {mb / statistics.median(set_s) / 1e3:.2f} GB/s; "
+              f"evictions {evictions} (model {model.evictions}), hbm_used {store.hbm_used} "
+              f"(model {model.used}), entries {len(store)}")
+        print(f"[cache] GET {size} over ici://: {median_ms(get_s):.3f} ms median of "
+              f"{CACHE_GETS} [{min(get_s) * 1e3:.3f}, {max(get_s) * 1e3:.3f}]; K1 per hop "
+              f"{n_get['copy_csum_blocks'] / CACHE_GETS:g}")
+        print(f"[cache] DMGET {DMGET_KEYS} x {size} over ici://: {median_ms(dmget_s):.3f} ms median of "
+              f"{CACHE_DMGETS} [{min(dmget_s) * 1e3:.3f}, {max(dmget_s) * 1e3:.3f}], "
+              f"{DMGET_KEYS * mb / statistics.median(dmget_s) / 1e3:.2f} GB/s; one fused "
+              f"gather, K1 per hop {n_dmget['copy_csum_blocks'] / CACHE_DMGETS:g}")
+        print(f"[cache] DMSET {DMGET_KEYS} x {size} over ici://: {dmset_dt * 1e3:.3f} ms; K1 "
+              f"{n_dmset['copy_csum_blocks']} in its one request hop (one per value)")
+        print(f"[cache] TCP GET {size} (host spill): {median_ms(tcp_s):.3f} ms median of "
+              f"{CACHE_TCP_GETS}; {SMALL_VALUE} B GET: ici:// {median_ms(small_ici):.3f} ms, TCP "
+              f"{median_ms(small_tcp):.3f} ms median of {CACHE_GETS}")
+        print(f"[cache] launches {counts}")
+
+        def window():
+            for j in range(16):
+                rcall(ch, ("GET", key(CACHE_SETS - 1 - j)))
+            for _ in range(2):
+                rcall(ch, ("DMGET", *dm_keys))
+        wall_us, busy_us, by_name = device_profile(torch, window)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        check(busy_us > 0, "the profiler saw no CUDA work in the cache window")
+        print(f"[profile] cache 16 GETs + 2 DMGETs: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top "
+              + ", ".join(f"{name[:40]} {us:.0f} us" for name, us in top))
+    finally:
+        for c in channels:
+            c.close()
+        srv.stop()
+        tcp_srv.stop()
+        store.flush()
+    return counts
+
+
+def phase_stream(torch, T):
+    """A stream over ici://: the echo service sends each device frame
+    back; one K1 per frame per hop.  Returns the launch counts."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.client.stream import Stream, StreamHandler
+    from incubator_brpc_tpu_torch.models.streaming_echo import StreamingEchoService
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server
+    from incubator_brpc_tpu_torch.server.service import ServiceStub
+
+    class Collect(StreamHandler):
+        def __init__(self):
+            self.frames, self.cv = [], threading.Condition()
+
+        def on_received_messages(self, stream, messages):
+            with self.cv:
+                self.frames.extend(messages)
+                self.cv.notify_all()
+
+    srv = Server()
+    srv.add_service(StreamingEchoService())
+    check(srv.start_ici(0, 60) == 0, "start_ici failed")
+    dev = srv._ici_port.device
+    x = make_payload(torch, (256, 1024), torch.float32, SEED)  # 1 MiB frames
+    try:
+        ch = Channel(ChannelOptions(timeout_ms=30000, ici_device=dev))
+        check(ch.init("ici://slice0/chip60") == 0, "channel init failed")
+        ctrl, sink = Controller(), Collect()
+        stream = Stream.create(ctrl, sink)
+        ServiceStub(ch, StreamingEchoService).StartStream(ctrl, EchoRequest(message="s"))
+        check(not ctrl.failed() and stream.wait_established(10), "stream not established")
+        T.reset_launch_counts()  # the stream path's run starts here
+        for _ in range(STREAM_FRAMES):
+            check(stream.write_device(x, timeout=30) == 0, "stream write failed")
+        with sink.cv:
+            check(sink.cv.wait_for(lambda: len(sink.frames) >= STREAM_FRAMES, 30),
+                  f"{len(sink.frames)} of {STREAM_FRAMES} frames came back")
+        torch.cuda.synchronize()
+        counts = dict(T.launches)  # ... and ends here
+        for f in sink.frames:
+            arr = f.device_arrays()[0]
+            check(arr.is_cuda and torch.equal(arr.view(torch.float32).reshape(x.shape), x),
+                  "a streamed frame came back with other bytes")
+        check(counts["copy_csum_blocks"] == 2 * STREAM_FRAMES,
+              f"{counts} for {STREAM_FRAMES} frames echoed: expected 1 K1 per frame per hop")
+        print(f"[stream] {STREAM_FRAMES} frames of {x.nbytes >> 10} KiB echoed over ici://, "
+              f"device-resident both ways; launches {counts}")
+        stream.close()
+        ch.close()
+    finally:
+        srv.stop()
+    return counts
+
+
+def phase_serve(torch):
+    """The fourth main path: disaggregated prefill/decode serving at
+    dim = 6144 against the monolithic decode loop.  Returns the decode
+    step's product rows for the products line."""
+    from incubator_brpc_tpu_torch.cache import HBMCacheStore
+    from incubator_brpc_tpu_torch.serving import session as sv_session
+    from incubator_brpc_tpu_torch.serving.decode import DecodeService
+    from incubator_brpc_tpu_torch.serving.prefill import PrefillService
+    from incubator_brpc_tpu_torch.serving.router import SessionChannel
+    from incubator_brpc_tpu_torch.streaming.generate import DecodeLoop
+
+    d, n_tok = SERVE_DIM, SERVE_TOKENS
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off")
+    sv_session.clear_registry()
+    t0 = time.perf_counter()
+    store = HBMCacheStore(SERVE_STORE)  # the card by default
+    loops = []
+    try:
+        pf = PrefillService(store, dim=d, n_layers=SERVE_LAYERS)
+        reps = [DecodeService(store, DecodeLoop(dim=d), name=f"serve-d{i}", max_sessions=256)
+                for i in range(SERVE_REPLICAS)]
+        mono = DecodeLoop(dim=d)
+        loops += [mono] + [r.loop for r in reps]
+        for lp in loops:
+            check(lp.device.type == "cuda", f"decode loop on {lp.device}")
+            lp.prewarm()  # W placed once; every bucket's product set up
+        pf.prewarm()
+        ch = SessionChannel(pf, reps)
+        ch.generate("serve-warm", "warmup prompt", 2)
+        print(f"[serve] set-up: 4 seeded W of ({d}, {d}) f32 placed, buckets warmed in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def mono_run(prompts, n):
+            toks = [[] for _ in prompts]
+            firsts = [None] * len(prompts)
+            dones = [threading.Event() for _ in prompts]
+            m0 = time.monotonic()
+            for i, p in enumerate(prompts):
+                def emit(tok, row, i=i):
+                    if firsts[i] is None:
+                        firsts[i] = time.monotonic() - m0
+                    toks[i].append(tok)
+                mono.admit(p, n, emit, lambda row, ok, i=i: dones[i].set())
+            for ev in dones:
+                check(ev.wait(120), "a monolithic row never finished")
+            return toks, firsts, time.monotonic() - m0
+
+        def disagg_run(tag, prompts, n):
+            toks, firsts, errs = [None] * len(prompts), [None] * len(prompts), []
+            d0 = time.monotonic()
+
+            def sess(i):
+                def on_token(idx, tok, i=i):
+                    if firsts[i] is None:
+                        firsts[i] = time.monotonic() - d0
+                try:
+                    res = ch.generate(f"sv-{tag}-{i}", prompts[i], n, on_token=on_token)
+                    toks[i] = res.tokens
+                    if res.prefill_executions != 1:
+                        errs.append(f"session {i}: prefill ran {res.prefill_executions} times")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(f"session {i}: {e!r}")
+            ts = [threading.Thread(target=sess, args=(i,)) for i in range(len(prompts))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(120)
+            check(not any(t.is_alive() for t in ts), "a disagg session never finished")
+            check(not errs, f"disagg sessions failed: {errs[:3]}")
+            return toks, firsts, time.monotonic() - d0
+
+        prompts = [f"point prompt {i}" for i in range(max(SERVE_P))]
+        solo = [mono_run([p], n_tok)[0][0] for p in prompts]  # each alone: bucket 1
+        med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+        for p in SERVE_P:
+            steps0 = mono.steps
+            mt, mf, mwall = mono_run(prompts[:p], n_tok)
+            mono_steps = mono.steps - steps0
+            dt, df, dwall = disagg_run(f"p{p}", prompts[:p], n_tok)
+            for i in range(p):
+                check(pf.prefill_executions[f"sv-p{p}-{i}"] == 1,
+                      f"p{p} session {i}: prefill ran more than once")
+            if p == 1:
+                check(dt[0] == mt[0] == solo[0],
+                      f"p1: disagg {dt[0][:4]} / mono {mt[0][:4]} / solo {solo[0][:4]} differ")
+            diff = lambda runs: sum(a != b for r, s in zip(runs, solo) for a, b in zip(r, s))  # noqa: E731
+            print(f"[serve] p{p:2}: disagg {p * n_tok / dwall:8.1f} tokens/s, TTFT median "
+                  f"{med(df):.2f} ms; mono {p * n_tok / mwall:8.1f} tokens/s, TTFT median "
+                  f"{med(mf):.2f} ms, {mono_steps} steps, max_fused {mono.max_fused}; tokens "
+                  f"differing from each session's solo run: disagg {diff(dt)}, mono {diff(mt)} "
+                  f"of {p * n_tok}")
+        for r in reps:
+            check(r.kv_pulls == r.fused_pulls,
+                  f"{r.name}: {r.kv_pulls} KV pulls, {r.fused_pulls} fused")
+        print("[serve] replicas: " + "; ".join(
+            f"{r.name} {r.kv_pulls} KV pulls (all one fused gather each), "
+            f"{r.loop.steps} steps, max_fused {r.loop.max_fused}" for r in reps)
+            + f"; prefill windows {pf.batches}, store {store.hbm_used} B of {SERVE_STORE}")
+
+        # ---- one checkpoint migration between the replicas --------------
+        for r in reps:
+            r.loop.step_delay_s = 0.004  # a migration lands mid-generation
+        mig_prompt, got, seen = prompts[0], {}, []
+        t = threading.Thread(target=lambda: got.setdefault("res", ch.generate(
+            "sv-mig", mig_prompt, n_tok, lambda i, tok: seen.append(i))))
+        t.start()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            rec = sv_session.get_session("sv-mig")
+            if rec is not None and len(rec.tokens) >= 8:
+                break
+            time.sleep(0.002)
+        check(ch.migrate("sv-mig", "chip smoke") is True, "the migration was refused")
+        t.join(60)
+        check(not t.is_alive() and "res" in got, "the migrated session never finished")
+        res = got["res"]
+        kinds = [e["kind"] for e in res.record.migration_log]
+        check(res.migrations == 1 and kinds == ["graceful"], f"migration log {kinds}")
+        check(seen == list(range(n_tok)), f"token indices {seen}: not each exactly once")
+        check(res.prefill_executions == 1 and pf.prefill_executions["sv-mig"] == 1,
+              "the migration re-ran prefill")
+        check(res.tokens == solo[0], "the migrated session's tokens differ from the unmigrated")
+        print(f"[serve] migration: 1 graceful checkpoint hop "
+              f"{res.record.migration_log[0]['from']} -> {res.record.replica} at token "
+              f"{res.record.ckpt_tokens}; {n_tok} tokens each emitted once, equal to the "
+              f"unmigrated run; prefill_executions 1")
+        for r in reps:
+            r.loop.step_delay_s = 0.0
+
+        # where the time goes at p = 32
+        p = max(SERVE_P)
+        wall_us, busy_us, by_name = device_profile(
+            torch, lambda: disagg_run("prof", prompts[:p], n_tok))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        check(busy_us > 0, "the profiler saw no CUDA work in the serving window")
+        print(f"[profile] serve disagg p{p}: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top "
+              + ", ".join(f"{name[:40]} {us:.0f} us" for name, us in top))
+        wall_us, busy_us, _ = device_profile(torch, lambda: mono_run(prompts[:p], n_tok))
+        print(f"[profile] serve mono p{p}: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%)")
+        decode_check(torch, mono)
+        # the step writes each row's state and sum, and does its tanh and sum
+        products = phase_products(
+            torch, mono._kernel, mono._ensure_w(), "decode_step",
+            "incubator_brpc_tpu_torch/streaming/generate.py",
+            "incubator_brpc_tpu/streaming/generate.py:161-178 "
+            "(tanh(s @ w) under jax.jit: an XLA op, not a TPU kernel)",
+            row_bytes=4, row_ops=2 * d)
+    finally:
+        for lp in loops:
+            lp.stop()
+        store.flush()
+    return products
+
+
+def decode_check(torch, loop, buckets=(1, 8, 32)):
+    """The decode step at each bucket of the serving path held to float64:
+    each state within PS_RTOL * (|x| @ |W|) of tanh(x @ W) (tanh is
+    1-Lipschitz, so the product's bound carries), each row sum within the
+    sum of its row's bounds.  A control step with TF32 on must fail the
+    same check at bucket 32 (at bucket 1 cuBLAS may run a gemv, which
+    has no TF32 path)."""
+    w = loop._ensure_w()
+    wd = w.double()
+    wa = wd.abs()
+    for b in buckets:
+        x = torch.randn((b, loop.dim), generator=torch.Generator(device=w.device)
+                        .manual_seed(SEED + b), device=w.device)
+        xd = x.double()
+        ref, scale = torch.tanh(xd @ wd), xd.abs() @ wa
+        got = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                new, sums = loop._kernel(w, x)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            got[tf32] = (past_f64(new, ref, scale),
+                         past_f64(sums, ref.sum(-1), scale.sum(-1)))
+        (st, sm), (tst, tsm) = got[False], got[True]
+        print(f"[serve] check decode step b={b:2}: float32 states {st[0]} of {b * loop.dim} "
+              f"past {PS_RTOL}, worst {st[1]:.3g}; sums {sm[0]} of {b} past, worst "
+              f"{sm[1]:.3g}; control TF32 states {tst[0]} past, worst {tst[1]:.3g}; "
+              f"sums {tsm[0]} past, worst {tsm[1]:.3g}")
+        check(st[0] == 0 and sm[0] == 0, f"the float32 decode step at bucket {b} failed "
+                                          f"its float64 check")
+        if b == 32:
+            check(tst[0] + tsm[0] > 0, "the decode check did not refuse a TF32 step")
 
 
 def device_ms(torch, fn, kernel=None, iters: int = 20, windows: int = 3) -> float:
@@ -741,6 +1290,16 @@ def phase_times(torch, T, errs, totals):
     rows[0].update(chunk_ms=ms["chunk"], chunk_bound_ms=c_bound)
     print(f"[times] copy_csum_blocks on a chunk ({CHUNK_ROWS}, {n}) f32 with a carry, "
           f"L2 cold: {ms['chunk']:.4f} ms (bound {c_bound:.4f} ms, {ms['chunk'] / c_bound:.2f}x)")
+    # K1 at the cache path's lane views: a 1 MiB value and the DMGET stack
+    for key, shape in [("cache_value", (256, 4096)), ("dmget_stack", (DMGET_KEYS, CACHE_VALUE))]:
+        v = make_payload(torch, shape, torch.uint8, SEED)
+        v_out, v_br = torch.empty_like(v), T._fit_block_rows(shape[0])
+        v_ms = device_ms(torch, lambda: T._copy_csum(v, None, v_br, out=v_out))
+        v_bound = max((2 * v.nbytes + 4 * shape[1]) / HBM_BYTES_PER_S,
+                      v.numel() / F32_OPS_PER_S) * 1e3
+        rows[0].update({f"{key}_ms": v_ms, f"{key}_bound_ms": v_bound})
+        print(f"[times] copy_csum_blocks on {key} {shape} u8: {v_ms:.4f} ms "
+              f"(bound {v_bound:.4f} ms, {v_ms / v_bound:.2f}x)")
     return rows
 
 
@@ -789,8 +1348,16 @@ def main() -> int:
     errs, main_csum = phase_kernels(torch, T)
     echo_counts = phase_echo(torch, T, main_csum)
     ps_counts, products = phase_ps(torch, T)
-    totals = {k: echo_counts[k] + ps_counts[k] for k in T.launches}
-    print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}")
+    cache_counts = phase_cache(torch, T)
+    stream_counts = phase_stream(torch, T)
+    T.reset_launch_counts()  # the serving path: its own products, no copy kernel
+    products += phase_serve(torch)
+    serve_counts = dict(T.launches)
+    check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
+    paths = [echo_counts, ps_counts, cache_counts, stream_counts]
+    totals = {k: sum(c[k] for c in paths) for k in T.launches}
+    print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; cache {cache_counts}; "
+          f"stream {stream_counts}; serve {serve_counts}")
     for k, v in totals.items():
         if k in OFF_PATH:  # no caller in either package: never on a path
             check(v == 0, f"kernel {k} launched {v} times on a main path")

@@ -9,9 +9,11 @@ protocols, client, server, chaos) are its own copies.
 What is ported so far is the device-payload RPC path: ``IOBuf``
 ``DeviceRef`` segments over ``torch.Tensor``, the ICI fabric
 (``parallel/ici.py``) and its copy kernels written by hand for Hopper
-(``ops/csrc/transfer.cu``); and the micro-batched parameter server
-(``batching/``, ``models/parameter_server.py``).  ROADMAP.md lists what
-remains.
+(``ops/csrc/transfer.cu``); the micro-batched parameter server
+(``batching/``, ``models/parameter_server.py``); the HBM cache tier
+behind the redis and memcache protocols (``cache/``); streams and the
+continuous-batched decode loop (``streaming/``); and disaggregated
+prefill/decode serving (``serving/``).  ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

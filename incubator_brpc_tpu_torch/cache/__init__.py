@@ -1,0 +1,24 @@
+"""HBM-resident cache tier (port of the JAX package's ``cache/``).
+
+Values live in device memory as exact-length tensors; GETs on ICI
+peers ship them as IOBuf DeviceRef segments with zero device->host
+pulls, host clients get bytes through the manifested
+``cache.host-spill`` scope only.  The redis and memcache protocols
+front the same store.  ``CacheChannel`` (consistent hashing over a
+naming-fed cluster) is not ported yet and raises naming its ROADMAP.md
+item; a single node is reached with a plain redis ``Channel``.
+"""
+
+from incubator_brpc_tpu_torch.cache.channel import CacheChannel
+from incubator_brpc_tpu_torch.cache.service import (
+    HBMCacheMemcacheService,
+    HBMCacheService,
+)
+from incubator_brpc_tpu_torch.cache.store import HBMCacheStore
+
+__all__ = [
+    "CacheChannel",
+    "HBMCacheMemcacheService",
+    "HBMCacheService",
+    "HBMCacheStore",
+]

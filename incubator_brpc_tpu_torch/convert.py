@@ -5,7 +5,10 @@
 dtype, shape and bytes.  numpy has no native bfloat16; JAX hands out
 its ``ml_dtypes`` bfloat16, which crosses here bit for bit.
 ``params_from_reference`` carries a whole parameter store (the JAX
-``PsService``'s stored matrices, key by key) the same way.
+``PsService``'s stored matrices, key by key) the same way;
+``decode_weights_from_reference`` the decode/prefill weight matrix.  A
+JAX cache value (uint8 bytes or a float32 KV layer) crosses with
+``tensor_from_reference`` too.
 """
 
 from __future__ import annotations
@@ -37,3 +40,11 @@ def params_from_reference(params: Mapping[str, np.ndarray],
     the port's ``PsService.put_param``."""
     dev = device_for_chip(0, device)
     return {key: tensor_from_reference(a, dev) for key, a in params.items()}
+
+
+def decode_weights_from_reference(jax_loop, device=None) -> torch.Tensor:
+    """The JAX ``DecodeLoop``'s (or ``PrefillService``'s) weight matrix
+    ``_w`` as a float32 tensor on ``device`` (default as for
+    :func:`tensor_from_reference`): bit for bit what the port's loop
+    draws from the same seed and places once."""
+    return tensor_from_reference(jax_loop._w, device)

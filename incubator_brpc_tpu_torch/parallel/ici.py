@@ -233,6 +233,9 @@ class IciPort:
         # than per-frame release, and the steady-state drain pays one
         # lock instead of len(batch)
         released = 0
+        # the queue hands an iterable (TaskIterator), not a list: the
+        # close path below slices the rest of the batch
+        batch = list(batch)
         try:
             for i, (frame, peer_coords) in enumerate(batch):
                 released += len(frame)

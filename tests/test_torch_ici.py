@@ -328,6 +328,28 @@ def test_receive_window_backpressure():
         fab.unregister(coords)
 
 
+def test_closed_port_releases_the_whole_batchs_window():
+    """A batch drained after its port closed releases the window bytes
+    of every frame in it, the undelivered rest included.  The queue
+    hands the drain an iterable, not a list: the JAX package's drain
+    slices it (``batch[i + 1:]``) and raises TypeError there instead."""
+    from incubator_brpc_tpu_torch.runtime.execution_queue import TaskIterator
+
+    fab = port_ici.get_fabric()
+    coords = fresh_coords()
+    port = fab.register(coords, server=object())
+    try:
+        frames = [(IOBuf(b"a" * 100), (0, 1)), (IOBuf(b"b" * 28), (0, 1))]
+        with port._qb_lock:
+            port._queued_bytes += 128
+        port.closed = True
+        port._drain_completions(TaskIterator(frames, False))
+        assert port._queued_bytes == 0
+    finally:
+        port.closed = False
+        fab.unregister(coords)
+
+
 # ---- device selection and what is not ported --------------------------------
 
 
@@ -393,6 +415,31 @@ echo_stub(ch).Echo(c, EchoRequest(message="guard"))
 assert not c.failed(), c.error_text()
 assert torch.equal(c.response_attachment.device_arrays()[0], x)
 srv.stop()
+# the cache, streaming and serving tiers, each driven once
+from incubator_brpc_tpu_torch.cache import HBMCacheService, HBMCacheStore
+from incubator_brpc_tpu_torch.protocols import redis as R
+from incubator_brpc_tpu_torch.server.server import ServerOptions
+from incubator_brpc_tpu_torch.serving.decode import DecodeService
+from incubator_brpc_tpu_torch.serving.prefill import PrefillService
+from incubator_brpc_tpu_torch.serving.router import SessionChannel
+from incubator_brpc_tpu_torch.streaming.generate import DecodeLoop
+import incubator_brpc_tpu_torch.models.streaming_echo, incubator_brpc_tpu_torch.serving.metrics
+srv = Server(ServerOptions(redis_service=HBMCacheService(device=cpu)))
+assert srv.start_ici(3, 78, device=cpu) == 0
+ch = Channel(ChannelOptions(protocol="redis", timeout_ms=30000, ici_device=cpu))
+assert ch.init("ici://slice3/chip78") == 0
+req = R.RedisRequest(); req.add_command("SET", b"k", b"v" * 256); req.add_command("GET", b"k")
+resp = R.RedisResponse(); c = Controller()
+ch.call_method(R.redis_method_spec(), c, req, resp)
+assert not c.failed(), c.error_text()
+assert resp.reply(1).bytes_value() == b"v" * 256
+srv.stop()
+store = HBMCacheStore(1 << 20, device=cpu)
+reps = [DecodeService(store, DecodeLoop(dim=8, device=cpu), name="g")]
+res = SessionChannel(PrefillService(store, dim=8, n_layers=2, device=cpu), reps).generate(
+    "guard", "guard prompt", 3)
+assert len(res.tokens) == 3 and res.prefill_executions == 1
+reps[0].close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))
