@@ -54,7 +54,31 @@ file.  Phases, each fatal on failure:
              evictions, hbm_used and a device-busy share.  Then a stream
              over ici:// echoes 1 MiB device frames (one K1 per frame per
              hop);
-6. serve   — the fourth main path: disaggregated prefill/decode serving
+6. dcn     — the DCN bridge: a second process started with subprocess
+             (a fresh interpreter on the same card) hosts an echo server
+             at ici://slice6/chip0 and a 1 GiB cache node at chip1 behind
+             listen_dcn; tpu://fabric resolves both.  A 64 MB float32
+             (8192, 2048) device tensor is echoed across the bridge (7
+             reps, the first echo apart: bench_dcn_bulk's 64 MB) and a
+             bfloat16 (4096, 1024) one once: byte-equal, fresh CUDA
+             tensors on the parent's device, K1 on each receiving hop
+             (the child's launches read back over its stdin/stdout), and
+             K1 on the DCN-uploaded frame bit-equal to plain;
+7. cluster — the clustered cache tier: three local 1 GiB nodes at
+             ici://slice5/chip{0,1,2} and the child's node across DCN
+             behind one CacheChannel (mesh_locality from slice5/chip0).
+             2048 SETs and GETs of 1 MiB device values routed as the
+             ring predicts (no eviction, hbm_used per node exact); the
+             DCN node from a client in its own slice; a get_many of 32
+             co-located keys is one DMGET and one stacked reply;
+             failover (a stopped node's keys read as clean misses) and
+             health-check revival (locality back >= 90%); a pallas-mode
+             set_many of 32 values to one node is one stacked K2 launch,
+             K2 on that stack bit-equal to plain and timed beside its
+             bound; a replicated group of three (256 quorum puts, 64
+             behind, one delete, repair_keys == 64); a live 2 -> 3
+             reshard of 1024 keys with collective_steps < keys_moved;
+8. serve   — the fourth main path: disaggregated prefill/decode serving
              (bench_disagg_serving's 3 layers, 2 decode replicas, 32
              tokens a session, parallelism 1, 8 and 32, a 64 MB store) at
              dim = 6144 against the monolithic DecodeLoop.  Disagg tokens
@@ -68,7 +92,7 @@ file.  Phases, each fatal on failure:
              decode step at buckets 1, 8 and 32 is held to float64 as the
              Forward product is (states and row sums), and a TF32 step
              must fail that check;
-7. times   — each kernel's time at the main path's shapes beside its
+9. times   — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(), K1 on the PS path's
              W and on one 8 MB chunk with a carry (the pipelined mode's
              launch, walked over a 64 MB frame so that the L2 is cold,
@@ -81,7 +105,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 5 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 9 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -91,6 +115,7 @@ two roots in turns (A, B, B, A).
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import pathlib
@@ -101,6 +126,7 @@ import threading
 import time
 
 SEED = 1234
+RUN_DEADLINE_S = 1150  # the whole run's budget, inside its 1200 s limit
 MAIN_SHAPE = (8192, 2048)  # 64 MB of float32: bench.py's bench_ici_rpc payload
 CHUNK_ROWS = 1024  # one 8 MB chunk of MAIN_SHAPE: the pipelined mode's K1 launch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -126,6 +152,19 @@ SERVE_REPLICAS = 2
 SERVE_TOKENS = 32
 SERVE_P = (1, 8, 32)
 SERVE_STORE = 64 << 20
+# the DCN bridge (bench.py:872-951 bench_dcn_bulk: 64 MB, 7 reps, the
+# first echo apart) and the clustered cache tier: three local nodes and
+# the child's across DCN, each a cache node's 1 GiB store
+DCN_SLICE = 6
+DCN_REPS = 7
+DCN_BF16_SHAPE = (4096, 1024)
+CLUSTER_SLICE = 5
+CLUSTER_KEYS = 2048
+CLUSTER_DCN_KEYS = 64
+REVIVE_DEADLINE_S = 10.0
+REPL_PUTS = 256
+REPL_BEHIND = 64
+RESHARD_KEYS = 1024
 SOURCE = "incubator_brpc_tpu_torch/ops/csrc/transfer.cu"
 REPLACES = {
     "copy_csum_blocks": "incubator_brpc_tpu/ops/transfer.py:112 (+:176, :202)",
@@ -205,6 +244,11 @@ def make_payload(torch, shape, dtype, seed):
     else:
         x = torch.randint(-(1 << 20), 1 << 20, shape, generator=g).to(dtype)
     return x.cuda()
+
+
+def card(torch):
+    """The device every phase's servers and channels use: the first card."""
+    return torch.device("cuda", 0)
 
 
 def phase_build():
@@ -684,8 +728,10 @@ def phase_products(torch, step, w, name, source, replaces, row_bytes=0, row_ops=
         x = torch.randn((b, d), generator=torch.Generator(device=w.device).manual_seed(b),
                         device=w.device)
         step(w, x)
-        _, busy_us, by_name = device_profile(torch, lambda: [step(w, x) for _ in range(iters)])
-        check(busy_us > 0, f"the profiler saw no {name} at bucket {b}")
+        seen = profile_windows(torch, lambda: [step(w, x) for _ in range(iters)],
+                               f"{name} at bucket {b}")
+        busy_us = statistics.median(busy for busy, _ in seen)
+        by_name = seen[0][1]
         ms = busy_us / iters / 1e3
         t_bytes = (w.nbytes + 2 * b * d * 4 + b * row_bytes) / HBM_BYTES_PER_S * 1e3
         t_ops = (2 * b * d * d + b * row_ops) / F32_OPS_PER_S * 1e3
@@ -994,6 +1040,550 @@ def phase_stream(torch, T):
     return counts
 
 
+CHILD_SRC = r'''
+import json, sys
+root, device, slice_id, budget = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+sys.path.insert(0, root)
+import torch
+from incubator_brpc_tpu_torch.cache import HBMCacheService, HBMCacheStore
+from incubator_brpc_tpu_torch.models.echo import EchoService
+from incubator_brpc_tpu_torch.ops import transfer as T
+from incubator_brpc_tpu_torch.parallel.dcn import listen_dcn
+from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+dev = torch.device(device)
+echo = Server()
+echo.add_service(EchoService())
+assert echo.start_ici(slice_id, 0, device=dev) == 0
+store = HBMCacheStore(budget, device=dev)
+cache = Server(ServerOptions(redis_service=HBMCacheService(store=store)))
+assert cache.start_ici(slice_id, 1, device=dev) == 0
+print(json.dumps({"dcn_port": listen_dcn(0, host="127.0.0.1"), "device": str(dev)}), flush=True)
+for line in sys.stdin:  # one command a line, one JSON line back
+    cmd = line.strip()
+    if cmd == "launches":
+        out = dict(T.launches)
+    elif cmd == "reset":
+        T.reset_launch_counts()
+        out = {}
+    elif cmd == "store":
+        out = {"keys": len(store), "hbm_used": store.hbm_used}
+    else:
+        break
+    print(json.dumps(out), flush=True)
+echo.stop()
+cache.stop()
+store.flush()
+'''
+
+
+class SmokeChild:
+    """The second process of the dcn and cluster phases: a fresh
+    interpreter running the port on ``device``, with an echo server at
+    ici://slice{slice_id}/chip0 and an HBM cache node (a 1 GiB store) at
+    chip1, behind ``listen_dcn``.  ``cmd`` asks it for its launch
+    counts (``launches``), resets them (``reset``) or reads its store
+    (``store``)."""
+
+    def __init__(self, device, slice_id):
+        import tempfile
+
+        self.slice = slice_id
+        self.err = tempfile.TemporaryFile(mode="w+")
+        root = str(pathlib.Path(__file__).resolve().parent)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", CHILD_SRC, root, str(device), str(slice_id),
+             str(CACHE_BUDGET)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err, text=True,
+        )
+        info = self._line()
+        self.dcn_port = info["dcn_port"]
+        check(info["device"] == str(device), f"child on {info['device']}, not {device}")
+
+    def _line(self) -> dict:
+        line = self.proc.stdout.readline()
+        if not line.startswith("{"):
+            self.err.seek(0)
+            fail(f"the dcn child said {line!r}; its stderr ends:\n{self.err.read()[-3000:]}")
+        return json.loads(line)
+
+    def cmd(self, name: str) -> dict:
+        self.proc.stdin.write(name + "\n")
+        self.proc.stdin.flush()
+        return self._line()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("quit\n")
+                self.proc.stdin.close()
+                self.proc.wait(60)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait(10)
+        self.err.close()
+
+
+def phase_dcn(torch, T, child, main_csum):
+    """The DCN bridge: a 64 MB float32 device tensor echoed through the
+    child's echo server (bench_dcn_bulk's 64 MB, 7 reps, the first echo
+    apart), then a bfloat16 one.  Returns (the parent's launch counts,
+    the child's, K1's max |acc - plain| on a DCN-uploaded frame)."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.client.naming_service import TpuTopologyNamingService
+    from incubator_brpc_tpu_torch.models.echo import echo_stub
+    from incubator_brpc_tpu_torch.parallel import dcn
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+
+    S = child.slice
+    coords = dcn.connect_dcn("127.0.0.1", child.dcn_port)
+    check({(S, 0), (S, 1)} <= set(coords), f"the bridge advertised {coords}")
+    named = {n.endpoint.coords for n in TpuTopologyNamingService().get_servers("fabric")}
+    check({(S, 0), (S, 1)} <= named, f"tpu://fabric resolved {sorted(named, key=str)}")
+    peers = [c.peer for c in dcn.get_bridge()._conns if not c.closed]
+    uds = any(p.startswith("uds:") for p in peers)
+    dev = card(torch)
+    uploads = []
+    upload = dcn._upload
+
+    def recording_upload(*args):
+        t = upload(*args)
+        uploads[:] = [t]  # the last DCN-uploaded tensor, for the kernel check
+        return t
+
+    ch = Channel(ChannelOptions(timeout_ms=60000, ici_device=dev))
+    check(ch.init(f"ici://slice{S}/chip0") == 0, "dcn channel init failed")
+    stub = echo_stub(ch)
+    x = make_payload(torch, MAIN_SHAPE, torch.float32, SEED)
+    xb = make_payload(torch, DCN_BF16_SHAPE, torch.bfloat16, SEED + 1)
+    frames = [0]
+
+    def echo(t):
+        c = Controller()
+        c.timeout_ms = 60000
+        c.request_attachment.append_device(t)
+        t0 = time.perf_counter()
+        stub.Echo(c, EchoRequest(message="dcn"))
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        check(not c.failed(), f"dcn echo failed: {c.error_text()}")
+        segs = c.response_attachment.device_segments()
+        check(len(segs) == 1 and segs[0].whole_array() is not None,
+              "the dcn response must be one whole device segment")
+        out = segs[0].array
+        check(out.is_cuda and out.device == dev, f"dcn response on {out.device}")
+        check(out.data_ptr() != t.data_ptr(), "dcn response is not a fresh buffer")
+        check(out.dtype == t.dtype and out.shape == t.shape and torch.equal(out, t),
+              f"dcn {t.dtype} echo came back with other bytes")
+        frames[0] += 1
+        return segs[0], dt
+
+    dcn._upload = recording_upload
+    try:
+        child.cmd("reset")
+        T.reset_launch_counts()  # the dcn path's run starts here
+        times = []
+        for _ in range(DCN_REPS + 1):
+            ref, dt = echo(x)
+            # the parent's receiving hop ran K1 over the uploaded bytes
+            check(ref.csum is not None and torch.equal(ref.csum, main_csum),
+                  "the dcn response's checksum differs from K1's whole-frame checksum")
+            times.append(dt)
+        uploaded = uploads[0]
+        _, bf16_dt = echo(xb)
+        counts = dict(T.launches)  # ... and ends here
+        child_counts = child.cmd("launches")
+    finally:
+        dcn._upload = upload
+        ch.close()
+    check(counts["copy_csum_blocks"] == frames[0],
+          f"parent {counts} for {frames[0]} device frames received: expected 1 K1 each")
+    check(child_counts["copy_csum_blocks"] >= frames[0],
+          f"child {child_counts} for {frames[0]} device frames received: expected >= 1 K1 each")
+    check(uploaded.is_cuda and uploaded.device == dev and uploaded.shape == x.shape,
+          f"the DCN upload landed on {uploaded.device} as {tuple(uploaded.shape)}")
+    # K1 on a DCN-uploaded 64 MB tensor against its plain version
+    br = T._fit_block_rows(uploaded.shape[0])
+    out_k, acc_k = T._copy_csum(uploaded, None, br)
+    _, acc_p = T.copy_csum_plain(uploaded, None, br)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(out_k, x) and torch.equal(acc_k, acc_p),
+          "K1 on the DCN-uploaded frame is not bit-equal to the plain version")
+    err = (acc_k - acc_p).abs().max().item()
+    first, med = times[0], statistics.median(times[1:])
+    gbps = 2 * x.nbytes / med / 1e9
+    print(f"[dcn] child pid {child.proc.pid} on {dev}: ici://slice{S}/chip0 (echo) and "
+          f"chip1 (cache) resolved by tpu://fabric; bridge {'UDS' if uds else 'TCP'} "
+          f"({', '.join(peers)})")
+    print(f"[dcn] 64 MB f32 {tuple(MAIN_SHAPE)} echo: {med * 1e3:.3f} ms median of {DCN_REPS} "
+          f"[{min(times[1:]) * 1e3:.3f}, {max(times[1:]) * 1e3:.3f}], {gbps:.2f} GB/s "
+          f"(2 x 64 MiB / time); first echo {first * 1e3:.3f} ms ({first / med:.2f}x)")
+    print(f"[dcn] bf16 {tuple(DCN_BF16_SHAPE)} echo {bf16_dt * 1e3:.3f} ms, byte-equal; "
+          f"launches parent {counts}, child {child_counts} for {frames[0]} device frames "
+          f"each way; K1 on the uploaded frame bit-equal to plain")
+    return counts, child_counts, err
+
+
+def phase_cluster(torch, T, child):
+    """The clustered cache tier: three local nodes and the child's node
+    across DCN behind one CacheChannel (mesh_locality); routing,
+    DMGET, failover and revival, the stacked K2 DMSET, a replicated
+    group and a live 2 -> 3 reshard.  Returns (launch counts of the
+    path, the K2 row's extra fields)."""
+    from incubator_brpc_tpu_torch.cache import CacheChannel, HBMCacheService, HBMCacheStore
+    from incubator_brpc_tpu_torch.cache import store as cache_store
+    from incubator_brpc_tpu_torch.chaos.harness import wait_until
+    from incubator_brpc_tpu_torch.client.channel import ChannelOptions
+    from incubator_brpc_tpu_torch.client.load_balancer import SelectIn, create_load_balancer
+    from incubator_brpc_tpu_torch.client.naming_service import ServerNode
+    from incubator_brpc_tpu_torch.observability.profiling import kernel_snapshot
+    from incubator_brpc_tpu_torch.parallel.ici import (
+        get_fabric,
+        ici_pallas_stacked_frames,
+        ici_pallas_stacked_segments,
+    )
+    from incubator_brpc_tpu_torch.replication import replicated_cache_group
+    from incubator_brpc_tpu_torch.resharding import (
+        CacheShardStore,
+        MigrationView,
+        ReshardCoordinator,
+        moved_keys,
+        shard_of,
+    )
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.utils.endpoint import str2endpoint
+    from incubator_brpc_tpu_torch.utils.hashes import murmur3_32
+
+    dev = card(torch)
+    TS, S = CLUSTER_SLICE, child.slice
+    local_eps = [f"ici://slice{TS}/chip{j}" for j in range(3)]
+    dcn_ep = f"ici://slice{S}/chip1"
+    eps = local_eps + [dcn_ep]
+
+    def start_node(j):
+        store = HBMCacheStore(CACHE_BUDGET, device=dev)
+        check(store.device == dev, f"cluster store on {store.device}")
+        srv = Server(ServerOptions(redis_service=HBMCacheService(store=store)))
+        check(srv.start_ici(TS, j, device=dev) == 0, f"start_ici of cluster node {j} failed")
+        return store, srv
+
+    def opts():
+        return ChannelOptions(timeout_ms=60000, ici_device=dev)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    nodes = [start_node(j) for j in range(3)]
+    stores = [n[0] for n in nodes]
+    channels = []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    vals = torch.randint(0, 256, (CLUSTER_KEYS, CACHE_VALUE), generator=g,
+                         dtype=torch.uint8, device=dev)
+    steps = {}
+
+    def step_counts(name):
+        steps[name] = {k: v for k, v in T.launches.items() if v}
+        T.reset_launch_counts()
+
+    size = f"{CACHE_VALUE >> 10} KiB"
+    t_phase = time.perf_counter()
+
+    def say(msg):
+        print(f"[cluster] {msg} [{time.perf_counter() - t_phase:.1f} s into the phase]")
+
+    try:
+        cc = CacheChannel("list://" + ",".join(eps), lb="mesh_locality",
+                          local_coords=(TS, 0), options=opts())
+        singles = {ep: CacheChannel(f"list://{ep}", lb="rr", options=opts()) for ep in eps}
+        channels += [cc, *singles.values()]
+
+        def flush_all():
+            for ch in singles.values():
+                ch.flush_all()
+            check(all(len(s) == 0 for s in stores), "a local node kept keys after FLUSHALL")
+
+        # ---- fill and route: 2048 SETs of 1 MiB, GETs of all -------------
+        keys = [b"c%05d" % i for i in range(CLUSTER_KEYS)]
+        ring = create_load_balancer("c_murmurhash")
+        for ep in local_eps:  # mesh_locality: the ring restricted to the local slice
+            ring.add_server(ServerNode(str2endpoint(ep)))
+        owner = {k: str(ring.select_server(SelectIn(request_code=murmur3_32(k))).endpoint)
+                 for k in keys}
+        ev0 = cache_store.cache_evictions.get_value()
+        T.reset_launch_counts()  # the cluster path's run starts here
+        set_s = [timed(lambda i=i, k=k: cc.set(k, vals[i]))[1] for i, k in enumerate(keys)]
+        step_counts("set")
+        get_s = []
+        for i, k in enumerate(keys):
+            v, dt = timed(lambda k=k: cc.get(k))
+            check(isinstance(v, torch.Tensor) and v.device == dev and torch.equal(v, vals[i]),
+                  f"cluster GET {k!r} returned other bytes than were SET")
+            get_s.append(dt)
+        step_counts("get")
+        check(cache_store.cache_evictions.get_value() == ev0, "the fill evicted")
+        per_node = []
+        for ep, store in zip(local_eps, stores):
+            want = {k for k in keys if owner[k] == ep}
+            check(set(store.keys()) == want,
+                  f"{ep} holds {len(store)} keys, the ring predicts {len(want)}")
+            check(store.hbm_used == len(want) * CACHE_VALUE,
+                  f"{ep} hbm_used {store.hbm_used} for {len(want)} keys")
+            per_node.append(len(want))
+        check(singles[dcn_ep].keys() == [], "the DCN node took keys from a healthy local slice")
+        check(cc.balancer().picks_remote == 0, "a healthy local slice spilled to DCN")
+        say(f"nodes {local_eps} on {dev} + {dcn_ep} across DCN, {CACHE_BUDGET >> 20} MiB "
+            f"stores; mesh_locality from (slice{TS}, chip0): {CLUSTER_KEYS} SETs of {size} "
+            f"routed as the ring predicts, keys per node {per_node} + 0 on the DCN node, no "
+            f"eviction; SET {median_ms(set_s):.3f} ms, GET {median_ms(get_s):.3f} ms median")
+
+        # ---- where the time goes over GETs ------------------------------------
+        def window():
+            for k in keys[:16]:
+                cc.get(k)
+        wall_us, busy_us, by_name = device_profile(torch, window)
+        if busy_us > 0:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            print(f"[profile] cluster 16 GETs: wall {wall_us:.0f} us, device busy "
+                  f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top "
+                  + ", ".join(f"{name[:40]} {us:.0f} us" for name, us in top))
+        else:
+            print(f"[profile] cluster 16 GETs: wall {wall_us:.0f} us, device time not "
+                  f"measured (the profiler returned no CUDA events)")
+        T.reset_launch_counts()  # the window's launches are not the path's
+
+        # ---- the DCN node, from a client in its own slice ------------------
+        cd = CacheChannel("list://" + ",".join(eps), lb="mesh_locality",
+                          local_coords=(S, 0), options=opts())
+        channels.append(cd)
+        child.cmd("reset")
+        dkeys = [b"d%03d" % j for j in range(CLUSTER_DCN_KEYS)]
+        dset_s = [timed(lambda j=j, k=k: cd.set(k, vals[j]))[1] for j, k in enumerate(dkeys)]
+        dget_s = []
+        for j, k in enumerate(dkeys):
+            v, dt = timed(lambda k=k: cd.get(k))
+            check(isinstance(v, torch.Tensor) and v.device == dev and torch.equal(v, vals[j]),
+                  f"DCN GET {k!r} returned other bytes")
+            dget_s.append(dt)
+        step_counts("dcn_node")
+        child_node = child.cmd("store")
+        child_k1 = child.cmd("launches")["copy_csum_blocks"]
+        check(child_node == {"keys": CLUSTER_DCN_KEYS, "hbm_used": CLUSTER_DCN_KEYS * CACHE_VALUE},
+              f"the DCN node holds {child_node}")
+        check(steps["dcn_node"].get("copy_csum_blocks") == CLUSTER_DCN_KEYS
+              and child_k1 == CLUSTER_DCN_KEYS,
+              f"DCN node: parent {steps['dcn_node']}, child K1 {child_k1} for "
+              f"{CLUSTER_DCN_KEYS} SETs and GETs (one K1 per receiving hop)")
+        say(f"DCN node from its own slice: SET {median_ms(dset_s):.3f} ms, GET "
+            f"{median_ms(dget_s):.3f} ms median of {CLUSTER_DCN_KEYS}; child K1 {child_k1}")
+
+        # ---- DMGET: 32 co-located keys, one stacked reply ---------------------
+        co = [i for i, k in enumerate(keys) if owner[k] == local_eps[1]][:DMGET_KEYS]
+        dmget_s = []
+        for _ in range(CACHE_DMGETS):
+            gathers0 = kernel_snapshot().get("fused.cache.mget_gather", {}).get("executions", 0)
+            res, dt = timed(lambda: cc.get_many([keys[i] for i in co]))
+            gathers = kernel_snapshot()["fused.cache.mget_gather"]["executions"] - gathers0
+            check(gathers == 1 and res.stacked is not None
+                  and tuple(res.stacked.shape) == (DMGET_KEYS, CACHE_VALUE),
+                  f"get_many of {DMGET_KEYS} co-located keys: {gathers} gathers, stacked "
+                  f"{None if res.stacked is None else tuple(res.stacked.shape)}")
+            for r, i in enumerate(co):
+                row = res.row(r)
+                check(row.data_ptr() == res.stacked[r].data_ptr() and torch.equal(row, vals[i]),
+                      f"DMGET row {r} is not the stack's row with the SET bytes")
+            dmget_s.append(dt)
+        step_counts("dmget")
+        say(f"get_many of {DMGET_KEYS} co-located keys: one DMGET, one stacked reply, "
+            f"{median_ms(dmget_s):.3f} ms median of {CACHE_DMGETS}")
+
+        # ---- failover and revival ---------------------------------------------
+        node0 = ServerNode(str2endpoint(local_eps[0]))
+
+        def isolated():
+            st = cc._channel._lb._states.get(node0)
+            return st is not None and st.breaker.is_isolated()
+
+        def revived():  # the health check's probe connected and reset the breaker
+            st = cc._channel._lb._states.get(node0)
+            return (st is not None and st.health_task is not None
+                    and st.health_task._stopped and not st.breaker.is_isolated())
+
+        nodes[0][1].stop()
+        stores[0].flush()
+        fail_s, misses, hits = [], 0, 0
+        for i, k in enumerate(keys):
+            v, dt = timed(lambda k=k: cc.get(k))
+            if owner[k] == local_eps[0]:
+                check(v is None, f"{k!r} of the stopped node did not read as a clean miss")
+                misses += 1
+                fail_s.append(dt)
+            else:
+                check(v is not None and torch.equal(v, vals[i]), f"{k!r} lost by the failover")
+                hits += 1
+        check(isolated(), "the stopped node was never isolated")
+        nodes[0] = start_node(0)
+        stores[0] = nodes[0][0]
+        t0 = time.perf_counter()
+        check(wait_until(revived, timeout_s=REVIVE_DEADLINE_S),
+              f"the health check did not revive node 0 within {REVIVE_DEADLINE_S} s")
+        revive_s = time.perf_counter() - t0
+        back = [i for i, k in enumerate(keys) if owner[k] == local_eps[0]][:20]
+        for i in back:  # the restarted node's store is empty: miss, then refill
+            check(cc.get(keys[i]) is None, "the restarted node answered from an old store")
+            cc.set(keys[i], vals[i])
+        b = cc.balancer()
+        b.picks_local = b.picks_remote = 0
+        for i in back:
+            v = cc.get(keys[i])
+            check(v is not None and torch.equal(v, vals[i]), "a refilled key lost its bytes")
+        check(set(stores[0].keys()) == {keys[i] for i in back},
+              "refilled keys did not route back to the revived node")
+        locality = cc.locality_fraction()
+        check(locality >= 0.9, f"locality {locality} after the revival")
+        step_counts("failover")
+        say(f"failover: node 0 stopped, {misses} clean misses ({median_ms(fail_s):.3f} ms "
+            f"median), {hits} hits; revived by the health check in {revive_s:.2f} s "
+            f"(deadline {REVIVE_DEADLINE_S} s), locality {locality:.2f}")
+
+        # ---- one set_many of 32 values to one node: one stacked K2 --------
+        flush_all()
+        pkeys, i = [], 0
+        while len(pkeys) < DMGET_KEYS:
+            k = b"p%05d" % i
+            if ring.select_server(SelectIn(request_code=murmur3_32(k))).endpoint == node0.endpoint:
+                pkeys.append(k)
+            i += 1
+        pvals = [vals[j] for j in range(DMGET_KEYS)]
+        fabric = get_fabric()
+        saved = fabric.chunk_mode
+        frames0 = int(ici_pallas_stacked_frames.get_value())
+        segs0 = int(ici_pallas_stacked_segments.get_value())
+        T.reset_launch_counts()
+        fabric.chunk_mode = "pallas"
+        try:
+            stored, dmset_dt = timed(lambda: cc.set_many(list(zip(pkeys, pvals))))
+        finally:
+            fabric.chunk_mode = saved
+        n_k2 = dict(T.launches)
+        step_counts("stacked_dmset")
+        frames = int(ici_pallas_stacked_frames.get_value()) - frames0
+        segs = int(ici_pallas_stacked_segments.get_value()) - segs0
+        check(stored == DMGET_KEYS and n_k2["copy_csum_staged"] == 1
+              and n_k2["copy_csum_blocks"] == 0 and frames == 1 and segs == DMGET_KEYS,
+              f"pallas-mode set_many of {DMGET_KEYS}: stored {stored}, launches {n_k2}, "
+              f"stacked frames +{frames}, segments +{segs}: expected one K2")
+        res = cc.get_many(pkeys)
+        for r in range(DMGET_KEYS):
+            check(torch.equal(res.row(r), pvals[r]), f"stacked DMSET value {r} read back differs")
+        step_counts("stacked_readback")
+        # K2 on the stack of those values against its plain version, then alone
+        stack = torch.stack(pvals)
+        m, n = stack.shape
+        br = T._fit_block_rows(m)
+        sr = T.pallas_stage_rows(stack, br)
+        out_k2, acc_k2 = T._staged_copy_csum(stack, br, sr)
+        _, acc_p = T.copy_csum_plain(stack, None, br)
+        torch.cuda.synchronize(dev)
+        check(torch.equal(out_k2, stack) and torch.equal(acc_k2, acc_p),
+              "K2 on the DMSET stack is not bit-equal to the plain version")
+        k2_err = (acc_k2 - acc_p).abs().max().item()
+        k2_ms = device_ms(torch, lambda: T._staged_copy_csum(stack, br, sr, out=out_k2),
+                          "copy_csum_staged")
+        k2_bound = max((2 * stack.nbytes + 4 * n) / HBM_BYTES_PER_S, m * n / F32_OPS_PER_S) * 1e3
+        say(f"pallas-mode set_many of {DMGET_KEYS} x {size} to one node: one stacked K2 "
+            f"launch, {dmset_dt * 1e3:.3f} ms; K2 on the ({m}, {n}) u8 stack {k2_ms:.4f} ms "
+            f"(bound {k2_bound:.4f} ms, {k2_ms / k2_bound:.2f}x), bit-equal to plain")
+
+        # ---- a replicated group over the three local nodes ------------------
+        flush_all()
+        T.reset_launch_counts()
+        group = replicated_cache_group("smoke.cache", [singles[ep] for ep in local_eps],
+                                       endpoints=local_eps, register=False, lease_ttl_s=60.0)
+        host = vals[:REPL_PUTS + REPL_BEHIND].cpu().numpy()
+        rkeys = [f"q{i:05d}" for i in range(REPL_PUTS + REPL_BEHIND)]
+        put_s = [timed(lambda i=i: group.put(rkeys[i], host[i].tobytes()))[1]
+                 for i in range(REPL_PUTS)]
+        check(group.counters["quorum_writes"] == REPL_PUTS,
+              f"{group.counters['quorum_writes']} quorum writes for {REPL_PUTS} puts")
+        behind = "smoke.cache.2"
+        group.mark_dead(behind)
+        for i in range(REPL_PUTS, REPL_PUTS + REPL_BEHIND):
+            group.put(rkeys[i], host[i].tobytes())
+        group.delete(rkeys[0])
+        group.mark_alive(behind)
+        copied, repair_dt = timed(lambda: group.repair(behind))
+        check(copied == REPL_BEHIND and group.counters["repair_keys"] == REPL_BEHIND,
+              f"repair copied {copied}, repair_keys {group.counters['repair_keys']}; "
+              f"expected {REPL_BEHIND}")
+        check(all(s.get(rkeys[0].encode()) is None for s in stores), "the deleted key came back")
+        for i in range(1, REPL_PUTS + REPL_BEHIND):
+            for s in stores:
+                v = s.get(rkeys[i].encode())
+                check(v is not None and torch.equal(v, vals[i]),
+                      f"replica value {rkeys[i]} differs on a node")
+        step_counts("replication")
+        say(f"replicated group of 3: {REPL_PUTS} quorum puts of {size} "
+            f"{median_ms(put_s):.3f} ms median; {REPL_BEHIND} behind + 1 delete repaired in "
+            f"{repair_dt * 1e3:.1f} ms (repair_keys {copied}), every replica equal")
+
+        # ---- live resharding 2 -> 3 over the local nodes -------------------
+        flush_all()
+        skeys = [f"r{i:05d}" for i in range(RESHARD_KEYS)]
+        for i, k in enumerate(skeys):
+            singles[local_eps[shard_of(k, 2)]].set(k, vals[i])
+        step_counts("reshard_fill")
+        planned = moved_keys(skeys, 2, 3)
+        parts = [CacheShardStore(singles[ep]) for ep in local_eps]
+        rep, reshard_dt = timed(lambda: ReshardCoordinator(
+            "smoke-reshard", parts[:2], parts, view=MigrationView()).run())
+        step_counts("reshard")
+        c = rep["counters"]
+        check(rep["completed"] and c["keys_moved"] == len(planned)
+              and 0 < c["collective_steps"] <= 3 * c["bulk_ranges"]
+              and c["collective_steps"] < c["keys_moved"] and c["checksum_failures"] == 0,
+              f"reshard report {rep}")
+        for i, k in enumerate(skeys):
+            v = stores[shard_of(k, 3)].get(k.encode())
+            check(v is not None and torch.equal(v, vals[i]), f"{k} not at shard_of(k, 3)")
+            if k in planned:
+                check(stores[planned[k][0]].get(k.encode()) is None, f"{k} left on its old shard")
+        say(f"reshard 2 -> 3: {RESHARD_KEYS} keys of {size}, {c['keys_moved']} moved in "
+            f"{reshard_dt:.3f} s ({c['keys_moved'] / reshard_dt:.1f} keys/s, "
+            f"{c['keys_moved'] * CACHE_VALUE / reshard_dt / 1e9:.3f} GB/s); collective_steps "
+            f"{c['collective_steps']}, bulk_ranges {c['bulk_ranges']}, checksum_failures "
+            f"{c['checksum_failures']}")
+        # the verify paths hash every value they read on the host: repair
+        # both copies of each key the replicas share and each copied key
+        # twice, the reshard each moved key twice
+        one = host[0].tobytes()
+        t0 = time.perf_counter()
+        murmur3_32(one)
+        hash_s = time.perf_counter() - t0
+        hashes = {"repair": 2 * (REPL_PUTS - 1) + 2 * REPL_BEHIND, "reshard": 2 * c["keys_moved"]}
+        say(f"murmur3_32 of one {size} value on the host: {hash_s:.3f} s; the repair's "
+            f"{hashes['repair']} and the reshard's {hashes['reshard']} such hashes: "
+            f"{hashes['repair'] * hash_s:.1f} s and {hashes['reshard'] * hash_s:.1f} s")
+
+        flush_all()
+    finally:
+        for ch in channels:
+            ch.close()
+        for store, srv in nodes:
+            srv.stop()
+            store.flush()
+
+    counts = {k: sum(s.get(k, 0) for s in steps.values()) for k in T.launches}
+    say(f"launches per step {steps}")
+    k2 = {"dmset_stack_ms": k2_ms, "dmset_stack_bound_ms": k2_bound,
+          "dmset_stack_max_abs_err": k2_err, "dmset_stack_launches": steps["stacked_dmset"]
+          .get("copy_csum_staged", 0)}
+    return counts, k2
+
+
 def phase_serve(torch):
     """The fourth main path: disaggregated prefill/decode serving at
     dim = 6144 against the monolithic decode loop.  Returns the decode
@@ -1185,22 +1775,35 @@ def decode_check(torch, loop, buckets=(1, 8, 32)):
             check(tst[0] + tsm[0] > 0, "the decode check did not refuse a TF32 step")
 
 
+def profile_windows(torch, fn, what, kernel=None, windows: int = 3, tries: int = 8):
+    """Up to ``windows`` profiler windows over fn() that saw CUDA work
+    (those whose name holds ``kernel``, or any), as (busy_us, by_name):
+    now and then a window reads empty, as if it lost its events, so up
+    to ``tries`` windows are taken.  Fails when none saw any."""
+    seen = []
+    for _ in range(tries):
+        _, busy_us, by_name = device_profile(torch, fn)
+        if kernel is not None:
+            by_name = {k: v for k, v in by_name.items() if kernel in k}
+            busy_us = sum(by_name.values())
+        if busy_us > 0:
+            seen.append((busy_us, by_name))
+            if len(seen) == windows:
+                break
+    check(len(seen) > 0, f"the profiler saw no {what} in {tries} windows")
+    return seen
+
+
 def device_ms(torch, fn, kernel=None, iters: int = 20, windows: int = 3) -> float:
     """Device time per call of fn(), from the profiler's CUDA events over
     iters calls: those whose name holds ``kernel``, or all of them; the
-    median of the ``windows`` profiler windows that saw any (now and then
-    a window reads low or empty, as if it lost events).  Timing
+    median of ``windows`` profiler windows that saw any.  Timing
     back-to-back launches with CUDA events instead would measure the
     host's launch rate for a kernel of a few microseconds."""
     fn()
-    per = []
-    for _ in range(windows):
-        _, busy_us, by_name = device_profile(torch, lambda: [fn() for _ in range(iters)])
-        us = busy_us if kernel is None else sum(v for k, v in by_name.items() if kernel in k)
-        if us > 0:
-            per.append(us / iters / 1e3)
-    check(len(per) > 0, f"the profiler saw no {kernel or 'CUDA work'} in {windows} windows")
-    return statistics.median(per)
+    seen = profile_windows(torch, lambda: [fn() for _ in range(iters)],
+                           kernel or "CUDA work", kernel, windows)
+    return statistics.median(busy / iters / 1e3 for busy, _ in seen)
 
 
 def chunk_walk(T, x, out, carry, br):
@@ -1342,6 +1945,8 @@ def main() -> int:
         return 1
     from incubator_brpc_tpu_torch.ops import transfer as T
 
+    # a run that outlives its budget dumps every thread's stack and exits
+    faulthandler.dump_traceback_later(RUN_DEADLINE_S, exit=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     smi = phase_build()
@@ -1350,20 +1955,32 @@ def main() -> int:
     ps_counts, products = phase_ps(torch, T)
     cache_counts = phase_cache(torch, T)
     stream_counts = phase_stream(torch, T)
+    child = SmokeChild(card(torch), DCN_SLICE)
+    try:
+        dcn_counts, dcn_child_counts, dcn_err = phase_dcn(torch, T, child, main_csum)
+        cluster_counts, k2_stack = phase_cluster(torch, T, child)
+    finally:
+        child.close()
     T.reset_launch_counts()  # the serving path: its own products, no copy kernel
     products += phase_serve(torch)
     serve_counts = dict(T.launches)
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
-    paths = [echo_counts, ps_counts, cache_counts, stream_counts]
+    paths = [echo_counts, ps_counts, cache_counts, stream_counts, dcn_counts, cluster_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; cache {cache_counts}; "
-          f"stream {stream_counts}; serve {serve_counts}")
+          f"stream {stream_counts}; dcn {dcn_counts} (child {dcn_child_counts}); "
+          f"cluster {cluster_counts}; serve {serve_counts}")
+    for name, c in [("dcn", dcn_counts), ("cluster", cluster_counts)]:
+        check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")
+    check(cluster_counts["copy_csum_staged"] > 0, "K2 never launched on the cluster path")
     for k, v in totals.items():
         if k in OFF_PATH:  # no caller in either package: never on a path
             check(v == 0, f"kernel {k} launched {v} times on a main path")
         else:
             check(v > 0, f"kernel {k} never launched on the main paths")
     rows = phase_times(torch, T, errs, totals)
+    rows[0]["dcn_frame_max_abs_err"] = dcn_err
+    rows[1].update(k2_stack)
     print(json.dumps({"products": products}))
     print(json.dumps({"kernels": rows}))
     print(smi)

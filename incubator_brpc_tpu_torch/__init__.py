@@ -12,8 +12,12 @@ What is ported so far is the device-payload RPC path: ``IOBuf``
 (``ops/csrc/transfer.cu``); the micro-batched parameter server
 (``batching/``, ``models/parameter_server.py``); the HBM cache tier
 behind the redis and memcache protocols (``cache/``); streams and the
-continuous-batched decode loop (``streaming/``); and disaggregated
-prefill/decode serving (``serving/``).  ROADMAP.md lists what remains.
+continuous-batched decode loop (``streaming/``); disaggregated
+prefill/decode serving (``serving/``); the DCN bridge between processes
+(``parallel/dcn.py``), cluster channels (naming services, load
+balancers), and the clustered cache tier on top: ``CacheChannel``,
+replicated cache groups (``replication/``) and live resharding
+(``resharding/``).  ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

@@ -15,9 +15,9 @@ ever materialize for the small meta header.  Set
 Completion delivery uses an ExecutionQueue per port, feeding the exact
 same protocol parse path as TCP (one framing, two transports).
 
-Scope: the fabric routes between ici:// coordinates registered in this
-process.  The DCN bridge to other processes is ROADMAP.md queue 1 item
-9; until then unknown coordinates fail fast with EFAILEDSOCKET.
+Coordinates not registered in this process route over the DCN bridge
+(parallel/dcn.py) when a bridge connection advertised or learned them,
+and fail fast with EFAILEDSOCKET otherwise.
 """
 
 from __future__ import annotations
@@ -498,10 +498,23 @@ class IciFabric:
         device if it differs (``Tensor.to`` = the ICI hop); same-device
         segments traverse device memory through the copy+checksum
         kernels unless zero_copy — then they move by reference. Coords
-        not registered in this process fail fast with EFAILEDSOCKET
-        (the DCN bridge is ROADMAP.md queue 1 item 9)."""
+        not registered in this process route over the DCN bridge
+        (parallel/dcn.py), the RDMA-TCP-bootstrap analog; a bridged
+        inbound frame (``_local_only``) is placed here like any other,
+        so its device segments run the receiving hop's kernel."""
         dst_port = self.port(dst)
         if dst_port is None:
+            if not _local_only:
+                from incubator_brpc_tpu_torch.parallel.dcn import get_bridge
+
+                route = get_bridge().route(dst)
+                if route is not None:
+                    # the DCN bridge records its own collective leg span
+                    rc = route.send_frame(frame, dst, src)
+                    if rc == 0:
+                        socket_mod.g_out_bytes << len(frame)
+                        socket_mod.g_out_messages << 1
+                    return rc
             return errors.EFAILEDSOCKET
         close_after_deliver = False
         if _chaos.armed:
@@ -593,7 +606,8 @@ class IciFabric:
         return 0
 
     def local_server_coords(self):
-        """Server ports registered in THIS process."""
+        """Server ports registered in THIS process (what the DCN hello
+        advertises to peers)."""
         with self._lock:
             items = list(self._ports.items())
         return sorted(
@@ -605,13 +619,43 @@ class IciFabric:
             and isinstance(coords[1], int)
         )
 
+    def local_cuda_devices(self):
+        """The CUDA devices of the ports registered in THIS process."""
+        with self._lock:
+            ports = list(self._ports.values())
+        return sorted(
+            {
+                p.device
+                for p in ports
+                if not p.closed
+                and p.device is not None
+                and p.device.type == "cuda"
+            },
+            key=str,
+        )
+
     def server_coords(self):
-        """Every reachable server port (local ones: no DCN bridge yet)."""
-        return self.local_server_coords()
+        """Every reachable server port: local ones plus those learned
+        over DCN bridges (the tpu:// naming service reads this, so a
+        cross-process cluster resolves like a local one)."""
+        coords = set(self.local_server_coords())
+        from incubator_brpc_tpu_torch.parallel.dcn import _bridge
+
+        if _bridge is not None:
+            coords.update(
+                c
+                for c in _bridge.remote_server_coords()
+                if isinstance(c[0], int) and isinstance(c[1], int)
+            )
+        return sorted(coords)
 
     def routable(self, coords) -> bool:
-        """True if coords are a local port."""
-        return self.port(coords) is not None
+        """True if coords are a local port or reachable over a bridge."""
+        if self.port(coords) is not None:
+            return True
+        from incubator_brpc_tpu_torch.parallel.dcn import _bridge
+
+        return _bridge is not None and _bridge.route(coords) is not None
 
     def _place_segments(self, frame: IOBuf, dst_port: IciPort,
                         zero_copy: bool, leg=None):

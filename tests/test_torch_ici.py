@@ -363,11 +363,26 @@ def test_start_ici_without_cuda_needs_a_device(monkeypatch):
 
 
 def test_unported_branches_raise_not_implemented():
+    # cluster channels are ported: a naming URL with a balancer inits
     ch = Channel()
+    assert ch.init("list://127.0.0.1:1,127.0.0.1:2", "rr") == 0
+    ch.close()
+    # the native submission ring, Channel TLS and the native engine are not
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        ch.init("list://127.0.0.1:1,127.0.0.1:2", "rr")
+        ch.call_many(None, [])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Channel(ChannelOptions(ssl_options=object())).init("127.0.0.1:1")
     with pytest.raises(NotImplementedError):
         Channel(ChannelOptions(connection_type="native")).init("127.0.0.1:1")
+    # the combo channels: the fan-out ones come with the collectives
+    from incubator_brpc_tpu_torch.client import combo
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        combo.ParallelChannel
+    with pytest.raises(NotImplementedError, match="item 12"):
+        combo.ManualClusterChannel
+    with pytest.raises(NotImplementedError, match="item 5"):
+        from incubator_brpc_tpu_torch import PartitionChannel  # noqa: F401
     with pytest.raises(NotImplementedError, match="item 12"):
         Server(ServerOptions(native_engine=True)).start(0)
     srv = Server(ServerOptions(rpc_dump_dir="rpc_dump"))
@@ -440,6 +455,22 @@ res = SessionChannel(PrefillService(store, dim=8, n_layers=2, device=cpu), reps)
     "guard", "guard prompt", 3)
 assert len(res.tokens) == 3 and res.prefill_executions == 1
 reps[0].close()
+# the DCN bridge and the cluster tier: a cache cluster over list://, a
+# replicated group, a resharding plan, with the bridge listening
+from incubator_brpc_tpu_torch.cache import CacheChannel
+from incubator_brpc_tpu_torch.client.lb_with_naming import LoadBalancerWithNaming
+from incubator_brpc_tpu_torch.parallel.dcn import get_bridge, listen_dcn
+from incubator_brpc_tpu_torch.replication import replicated_cache_group
+from incubator_brpc_tpu_torch.resharding import moved_keys
+assert listen_dcn(0, host="127.0.0.1") > 0
+srv = Server(ServerOptions(redis_service=HBMCacheService(device=cpu)))
+assert srv.start_ici(3, 79, device=cpu) == 0
+cc = CacheChannel("list://ici://slice3/chip79", lb="rr",
+                  options=ChannelOptions(timeout_ms=30000, ici_device=cpu))
+g = replicated_cache_group("guard", [cc], register=False)
+g.put("k", b"v" * 64)
+assert cc.get_host("k") == b"v" * 64 and moved_keys(["k"], 1, 2) is not None
+cc.close(); srv.stop(); get_bridge().close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))
