@@ -40,7 +40,25 @@ file.  Phases, each fatal on failure:
              control product with TF32 on must fail that same check.
              Prints Put/Get time and GB/s, qps/p50/p99 per point, the
              on/off speedup and a profiler window's device-busy share;
-5. cache   — the third main path: an HBMCacheService behind
+5. shard   — the sharded PS at d = 6144: four PsService shard servers
+             at ici://slice0/chip{0..3} on the card behind
+             sharded_ps_channel (each sub-channel's timeout stated).
+             scatter_param sends W as 4 Puts of (1536, 6144) f32, one K1
+             per hop, and each shard's Get returns its rows bit-equal;
+             every fan-out Forward issues one leg per shard and its y is
+             held to float64 as the ps phase holds it, at parallelism 1
+             and 32 with batching off and on, beside the unsharded
+             figures; keyed Get/Put land one RPC on shard_of(key), which
+             equals the JAX package's on a golden list; a replicated PS
+             of 2 groups x 3 replicas (RF=1 delegates to the plain
+             channel; 256 quorum Puts and Gets of (64, 6144) f32 values;
+             a replica 64 writes behind repaired; a leader killed mid-
+             write with no acked write lost); a live 2 -> 4 reshard of
+             256 such keys under 2 threads of Get/Put/fan-out Forward
+             (moved == the scheme delta, one epoch bump, no checksum
+             failure, only ERPC error codes).  The native murmur3_32
+             must be in use;
+6. cache   — the third main path: an HBMCacheService behind
              ServerOptions.redis_service on Server.start_ici over a 1 GiB
              store on the card.  2048 SETs of 1 MiB device values over
              ici:// (one K1 per hop; the store adopts each delivered
@@ -54,7 +72,7 @@ file.  Phases, each fatal on failure:
              evictions, hbm_used and a device-busy share.  Then a stream
              over ici:// echoes 1 MiB device frames (one K1 per frame per
              hop);
-6. dcn     — the DCN bridge: a second process started with subprocess
+7. dcn     — the DCN bridge: a second process started with subprocess
              (a fresh interpreter on the same card) hosts an echo server
              at ici://slice6/chip0 and a 1 GiB cache node at chip1 behind
              listen_dcn; tpu://fabric resolves both.  A 64 MB float32
@@ -64,7 +82,7 @@ file.  Phases, each fatal on failure:
              tensors on the parent's device, K1 on each receiving hop
              (the child's launches read back over its stdin/stdout), and
              K1 on the DCN-uploaded frame bit-equal to plain;
-7. cluster — the clustered cache tier: three local 1 GiB nodes at
+8. cluster — the clustered cache tier: three local 1 GiB nodes at
              ici://slice5/chip{0,1,2} and the child's node across DCN
              behind one CacheChannel (mesh_locality from slice5/chip0).
              2048 SETs and GETs of 1 MiB device values routed as the
@@ -78,7 +96,8 @@ file.  Phases, each fatal on failure:
              bound; a replicated group of three (256 quorum puts, 64
              behind, one delete, repair_keys == 64); a live 2 -> 3
              reshard of 1024 keys with collective_steps < keys_moved;
-8. serve   — the fourth main path: disaggregated prefill/decode serving
+             the native murmur3_32 must be in use, and is timed;
+9. serve   — the fourth main path: disaggregated prefill/decode serving
              (bench_disagg_serving's 3 layers, 2 decode replicas, 32
              tokens a session, parallelism 1, 8 and 32, a 64 MB store) at
              dim = 6144 against the monolithic DecodeLoop.  Disagg tokens
@@ -92,7 +111,7 @@ file.  Phases, each fatal on failure:
              decode step at buckets 1, 8 and 32 is held to float64 as the
              Forward product is (states and row sums), and a TF32 step
              must fail that check;
-9. times   — each kernel's time at the main path's shapes beside its
+10. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(), K1 on the PS path's
              W and on one 8 MB chunk with a carry (the pipelined mode's
              launch, walked over a 64 MB frame so that the L2 is cold,
@@ -105,7 +124,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 9 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 10 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -165,6 +184,26 @@ REVIVE_DEADLINE_S = 10.0
 REPL_PUTS = 256
 REPL_BEHIND = 64
 RESHARD_KEYS = 1024
+# the sharded PS (docs/sharded_ps.md, bench.py:3277 bench_resharding,
+# :3554 bench_replicated_ps) at the PS's width: W row-scattered over
+# four shard servers on the card, 1.5 MiB (64, 6144) f32 values
+SHARDS = 4
+SHARD_CHIPS = (0, 1, 2, 3)  # ici://slice0/chip{k}: cuda:(k % count), one card
+REPL_CHIPS = (4, 5, 6, 7, 8, 9)  # 2 groups x 3 replicas
+SHARD_TIMEOUT_MS = 60000  # each shard sub-channel's, stated: not the 1000 ms default
+SHARD_VALUE = (64, PS_DIM)
+SHARD_KEYS = 256
+KEYED_KEYS = 32
+# shard_of("key0".."key15") under seed 0 over 4 shards: the JAX
+# package's ShardRoutedChannel.shard_of (murmur3_32) on the same keys
+SHARD_GOLDEN = [3, 1, 0, 0, 1, 3, 3, 1, 2, 2, 1, 0, 3, 0, 3, 0]
+REPL_OPS = 256
+RF1_KEYS = 24
+RF1_CALLS = 120
+RF3_CALLS = 120
+KILL_PUTS = 64
+RESHARD_THREADS = 2
+RESHARD_PHASE_CALLS = 60
 SOURCE = "incubator_brpc_tpu_torch/ops/csrc/transfer.cu"
 REPLACES = {
     "copy_csum_blocks": "incubator_brpc_tpu/ops/transfer.py:112 (+:176, :202)",
@@ -474,7 +513,8 @@ def phase_echo(torch, T, main_csum, hi=24, lo=4, reps=7):
 def phase_ps(torch, T):
     """The second main path: the batched parameter server at d = 6144.
     Returns (launch counts of the path, product rows for the times
-    line)."""
+    line, {(parallelism, batching): (qps, p50 us, p99 us)} of Forward
+    with the Put/Get medians under "put_ms"/"get_ms")."""
     import numpy as np
 
     from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
@@ -552,6 +592,8 @@ def phase_ps(torch, T):
             check(v == per_hop * hops, f"ps: {k} launched {v} times for {hops} "
                                        f"hops of W, expected {per_hop} per hop")
         mb = W.nbytes / 1e6
+        summary = {"put_ms": statistics.median(put_s) * 1e3,
+                   "get_ms": statistics.median(get_s) * 1e3}
         for name, ts in [("Put", put_s), ("Get", get_s)]:
             med = statistics.median(ts)
             print(f"[ps] {name} of W ({d}, {d}) f32, {mb:.1f} MB over ici://: "
@@ -574,61 +616,7 @@ def phase_ps(torch, T):
         stubs = [ps_stub(c) for c in channels]
 
         def run_point(inflight, duration):
-            """bench.py:2089-2150: each completion issues the next call,
-            so `inflight` calls stay outstanding for `duration`.  Also
-            returns the point's oldest-generation GC pauses (ms): one
-            stalls every call in flight, so they set the tail."""
-            lats, ys, errs, lock = [], [], [], threading.Lock()
-            gc_ms, gc_t0 = [], [0.0]
-
-            def on_gc(phase, info):
-                if info["generation"] != 2:
-                    return
-                if phase == "start":
-                    gc_t0[0] = time.perf_counter()
-                else:
-                    gc_ms.append((time.perf_counter() - gc_t0[0]) * 1e3)
-            active = [inflight]
-            drained = threading.Event()
-            stop_at = time.monotonic() + duration
-
-            def issue(slot, k):
-                c = Controller()
-                c.timeout_ms = 20000
-                idx = k % len(xs)
-                c.request_attachment.append_user_data(x_bytes[idx])
-                t0 = time.monotonic_ns()
-
-                def on_done():
-                    now = time.monotonic()
-                    with lock:
-                        if c.failed():
-                            errs.append(c.error_text())
-                        else:
-                            lats.append((time.monotonic_ns() - t0) // 1000)
-                            ys.append((idx, c.response_attachment.to_bytes()))
-                    if now < stop_at:
-                        issue(slot, k + inflight)
-                        return
-                    with lock:
-                        active[0] -= 1
-                        if active[0] == 0:
-                            drained.set()
-
-                stubs[slot % len(stubs)].Forward(c, req, done=on_done)
-
-            gc.callbacks.append(on_gc)
-            try:
-                t_start = time.monotonic()
-                for slot in range(inflight):
-                    issue(slot, slot)
-                check(drained.wait(timeout=duration + 60), "Forward load did not drain")
-                wall = time.monotonic() - t_start
-            finally:
-                gc.callbacks.remove(on_gc)
-            check(not errs, f"Forward failed: {errs[:3]}")
-            lats.sort()
-            return lats, ys, wall, gc_ms
+            return closed_loop(stubs, req, x_bytes, inflight, duration)
 
         def off_by(got, idx):
             """Forward's check, |y - ref| <= PS_RTOL * (|x| @ |W|) per
@@ -645,7 +633,6 @@ def phase_ps(torch, T):
             check(bad == 0, f"{bad} Forward outputs off by up to {worst:.3g} of |x| @ |W|")
             return worst
 
-        pct = lambda lats, p: lats[min(len(lats) - 1, int(len(lats) * p))]  # noqa: E731
         points = {}
         for par in (1, 32):
             for cfg in ("off", "on"):
@@ -664,6 +651,7 @@ def phase_ps(torch, T):
                 seen = batcher.max_batch_seen if batcher else 1
                 qps = len(lats) / wall
                 points[(par, cfg)] = qps
+                summary[(par, cfg)] = (qps, pct(lats, 0.5), pct(lats, 0.99))
                 print(f"[ps] Forward parallelism {par:2} batching {cfg:3}: "
                       f"{qps:9.1f} qps, p50 {pct(lats, 0.5)} us, p99 {pct(lats, 0.99)} us "
                       f"over {len(lats)} calls in {wall:.2f} s; {batches} batches for "
@@ -714,7 +702,642 @@ def phase_ps(torch, T):
         for c in channels:
             c.close()
         srv.stop()
-    return counts, products
+    return counts, products, summary
+
+
+def phase_shard(torch, T, ps_summary):
+    """The sharded PS at d = 6144: four PsService shard servers on the
+    card behind sharded_ps_channel; W row-scattered by scatter_param,
+    fan-out Forward, keyed routing, a replicated PS of 2 groups x 3
+    replicas and a live 2 -> 4 reshard under load.  Returns the launch
+    counts of the path."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.chaos.harness import ERROR_WHITELIST
+    from incubator_brpc_tpu_torch.client.channel import ChannelOptions
+    from incubator_brpc_tpu_torch.client.combo import DynamicShardChannel, ShardRoutedChannel
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import (
+        _FORWARD_KERNEL,
+        PS_BATCH_POLICY,
+        PsService,
+        ps_stub,
+        scatter_param,
+        sharded_ps_channel,
+    )
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.replication import replicated_ps_channel
+    from incubator_brpc_tpu_torch.resharding import (
+        MigrationView,
+        PsShardStore,
+        ReshardCoordinator,
+        moved_keys,
+        shard_of,
+    )
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.utils.hashes import murmur3_native
+
+    check(murmur3_native(), "the native murmur3_32 is not in use: the verify paths "
+                            "would hash in Python")
+    dev = card(torch)
+    d, n = PS_DIM, SHARDS
+    rows = d // n
+    t_phase = time.perf_counter()
+
+    def say(msg):
+        print(f"[shard] {msg} [{time.perf_counter() - t_phase:.1f} s into the phase]")
+
+    def opts():
+        return ChannelOptions(timeout_ms=SHARD_TIMEOUT_MS, ici_device=dev)
+
+    class CountingPs(PsService):
+        """Counts the calls its unbatched dispatch serves (a batched
+        window goes to PsService's batch function, the batcher's rows
+        count those)."""
+
+        def __init__(self):
+            super().__init__()  # the card
+            self.calls = {"Put": 0, "Get": 0, "Forward": 0}
+
+        def Put(self, controller, request, response, done):
+            self.calls["Put"] += 1
+            return PsService.Put(self, controller, request, response, done)
+
+        def Get(self, controller, request, response, done):
+            self.calls["Get"] += 1
+            return PsService.Get(self, controller, request, response, done)
+
+        def Forward(self, controller, request, response, done):
+            self.calls["Forward"] += 1
+            return PsService.Forward(self, controller, request, response, done)
+
+    def start(chip, svc, batching=False):
+        srv = Server(ServerOptions(enable_batching=batching))
+        srv.add_service(svc)
+        check(srv.start_ici(0, chip) == 0, f"start_ici of ici://slice0/chip{chip} failed")
+        port_dev = srv._ici_port.device
+        check(port_dev == dev, f"shard server on {port_dev}, not {dev}")
+        return srv
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    def timing(call, method, into):
+        """``call`` (a sub-channel's call_method) that appends the
+        synchronized wall time of each synchronous ``method`` call to
+        ``into``."""
+        def timed_call(method_spec, controller, request, response, done=None):
+            t0 = time.perf_counter()
+            out = call(method_spec, controller, request, response, done)
+            if method_spec.method_name == method and done is None:
+                torch.cuda.synchronize(dev)
+                into.append(time.perf_counter() - t0)
+            return out
+        return timed_call
+
+    def calls(name):
+        return [s.calls[name] for s in svcs]
+
+    def delta(before, name):
+        return [a - b for a, b in zip(calls(name), before)]
+
+    def same_value(att, want, want_host):
+        """``att`` holds ``want``: as one device tensor equal to it, or as
+        its bytes (a replicated or migrated value moves as bytes)."""
+        try:
+            arrs = att.device_arrays()
+        except ValueError:
+            arrs = None
+        if arrs:
+            return len(arrs) == 1 and torch.equal(arrs[0], want)
+        return att.to_bytes() == want_host.tobytes()
+
+    steps = {}
+
+    def step_counts(name):
+        steps[name] = {k: v for k, v in T.launches.items() if v}
+        T.reset_launch_counts()
+
+    svcs = [CountingPs() for _ in range(n)]
+    servers = []
+    channels = []
+    try:
+        for chip, svc in zip(SHARD_CHIPS, svcs):
+            servers.append(start(chip, svc, batching=True))
+            # batching stays on for Forward alone (toggled per point below)
+            servers[-1].disable_method_batching("PsService.Put")
+            servers[-1].disable_method_batching("PsService.Get")
+        eps = [f"ici://slice0/chip{c}" for c in SHARD_CHIPS]
+        sh = sharded_ps_channel(endpoints=eps, timeout_ms=SHARD_TIMEOUT_MS,
+                                channel_options=opts())
+        channels.append(sh)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+        check(T.device_copy_with_checksum(W)[1] is not None, "K1 on W")  # outside the count
+
+        # ---- scatter: W as 4 Puts of (1536, 6144) f32, one K1 per hop ------
+        T.reset_launch_counts()  # the shard path's run starts here
+        scatter_s, put_s, reps = [], [], 3
+        parts = sh.partitions()
+        for part in parts:  # each of scatter_param's Puts, timed on its sub-channel
+            part.call_method = timing(part.call_method, "Put", put_s)
+        try:
+            for _ in range(reps):
+                before = calls("Put")
+                scatter_s.append(timed(lambda: scatter_param(sh, "w", W))[1])
+                check(delta(before, "Put") == [1] * n,
+                      f"scatter Puts per shard {delta(before, 'Put')}")
+        finally:
+            for part in parts:
+                del part.call_method
+        check(len(put_s) == reps * n, f"{len(put_s)} timed scatter Puts for {reps * n}")
+        step_counts("scatter")
+        check(steps["scatter"] == {"copy_csum_blocks": reps * n},
+              f"scatter launched {steps['scatter']}: expected one K1 per Put hop, "
+              f"{reps * n} in all")
+        get_s = []
+        for i, (svc, part) in enumerate(zip(svcs, sh.partitions())):
+            stored = svc._store["w"]
+            check(stored.device == dev and tuple(stored.shape) == (rows, d)
+                  and torch.equal(stored, W[i * rows:(i + 1) * rows]),
+                  f"shard {i} does not hold W's rows {i * rows}:{(i + 1) * rows}")
+            check(not (W.data_ptr() <= stored.data_ptr() < W.data_ptr() + W.nbytes),
+                  f"shard {i} stores a view of W, not the delivered tensor")
+            c = Controller()
+            _, dt = timed(lambda: ps_stub(part).Get(c, EchoRequest(message="w")))
+            check(not c.failed(), f"shard {i} Get failed: {c.error_text()}")
+            got = c.response_attachment.device_arrays()
+            check(len(got) == 1 and got[0].device == dev
+                  and torch.equal(got[0], W[i * rows:(i + 1) * rows]),
+                  f"shard {i} Get returned other rows")
+            get_s.append(dt)
+        step_counts("shard_gets")
+        check(steps["shard_gets"] == {"copy_csum_blocks": n},
+              f"shard Gets launched {steps['shard_gets']}: expected one K1 per response hop")
+        mb = W[:rows].nbytes / 1e6
+        say(f"{n} PsService shards at {eps} on {dev}; scatter_param of W ({d}, {d}) f32 as "
+            f"{n} Puts of ({rows}, {d}), {mb:.1f} MB each: {median_ms(scatter_s):.3f} ms median "
+            f"of {reps} scatters ({W.nbytes / statistics.median(scatter_s) / 1e9:.2f} GB/s); "
+            f"each Put {median_ms(put_s):.3f} ms median of {len(put_s)} [{min(put_s) * 1e3:.3f}, "
+            f"{max(put_s) * 1e3:.3f}]; each shard's Get "
+            f"{median_ms(get_s):.3f} ms median [{min(get_s) * 1e3:.3f}, "
+            f"{max(get_s) * 1e3:.3f}], rows bit-equal; K1 1 per hop")
+
+        # ---- fan-out Forward, closed loop --------------------------------
+        traces0 = _FORWARD_KERNEL.trace_count()
+        w_shard = svcs[0]._store["w"]
+        for b in PS_BATCH_POLICY.padding_buckets:  # cuBLAS set-up out of the windows
+            _FORWARD_KERNEL(w_shard, torch.zeros((b, rows), device=dev))
+        xs = np.random.RandomState(SEED).randn(64, d).astype(np.float32)
+        x_bytes = [x.tobytes() for x in xs]
+        x_dev = torch.from_numpy(xs).to(dev).double()
+        ref = x_dev @ W.double()
+        scale = x_dev.abs() @ W.abs().double()
+        while len(channels) < 4:
+            channels.append(sharded_ps_channel(endpoints=eps, timeout_ms=SHARD_TIMEOUT_MS,
+                                               channel_options=opts()))
+        stubs = [ps_stub(c) for c in channels]
+        req = EchoRequest(message="w")
+
+        def verify(ys):
+            idx = torch.tensor([i for i, _ in ys], device=dev)
+            got = torch.from_numpy(
+                np.frombuffer(bytearray(b"".join(y for _, y in ys)), np.float32)
+                .reshape(len(ys), d)).to(dev)
+            bad, worst = past_f64(got, ref[idx], scale[idx])
+            check(bad == 0, f"{bad} fan-out Forward outputs off by up to {worst:.3g} of |x| @ |W|")
+            return worst
+
+        # one leg per shard per Forward (unbatched dispatch counts them)
+        for srv in servers:
+            srv.disable_method_batching("PsService.Forward")
+        for k in range(4):
+            before = calls("Forward")
+            c = Controller()
+            c.request_attachment.append_user_data(x_bytes[k])
+            r = stubs[0].Forward(c, req)
+            check(not c.failed() and r.message == "w", f"fan-out Forward failed: {c.error_text()}")
+            check(delta(before, "Forward") == [1] * n,
+                  f"a fan-out Forward issued legs {delta(before, 'Forward')}, expected [1] * {n}")
+            verify([(k, c.response_attachment.to_bytes())])
+        sharded = {}
+        for par in (1, 32):
+            for cfg in ("off", "on"):
+                for srv in servers:
+                    if cfg == "off":
+                        srv.disable_method_batching("PsService.Forward")
+                    else:
+                        srv.enable_method_batching("PsService.Forward")
+                batchers = [srv.batcher("PsService.Forward") for srv in servers]
+                closed_loop(stubs, req, x_bytes, min(par, 4), 0.1)  # warm
+                before = calls("Forward")
+                rows0 = [b.rows if b else 0 for b in batchers]
+                batches0 = [b.batches if b else 0 for b in batchers]
+                lats, ys, wall, gc_ms = closed_loop(stubs, req, x_bytes, par, 1.0)
+                worst = verify(ys)
+                if cfg == "off":
+                    legs = delta(before, "Forward")
+                    batches = sum(legs)
+                else:
+                    legs = [b.rows - r0 for b, r0 in zip(batchers, rows0)]
+                    batches = sum(b.batches - b0 for b, b0 in zip(batchers, batches0))
+                check(legs == [len(ys)] * n, f"{len(ys)} fan-out Forwards, legs per shard {legs}")
+                qps = len(lats) / wall
+                sharded[(par, cfg)] = (qps, pct(lats, 0.5), pct(lats, 0.99))
+                uq, u50, u99 = ps_summary[(par, cfg)]
+                seen = max(b.max_batch_seen for b in batchers) if cfg == "on" else 1
+                say(f"fan-out Forward parallelism {par:2} batching {cfg:3}: {qps:9.1f} qps, "
+                    f"p50 {pct(lats, 0.5)} us, p99 {pct(lats, 0.99)} us over {len(lats)} calls "
+                    f"in {wall:.2f} s ({n} legs each, {batches} shard batches for {sum(legs)} "
+                    f"legs, max batch {seen}); unsharded [ps]: {uq:.1f} qps, p50 {u50} us, "
+                    f"p99 {u99} us; max |y - ref| / (|x| @ |W|) {worst:.3g}; gen-2 GC pauses "
+                    f"{len(gc_ms)}, longest {max(gc_ms, default=0):.1f} ms")
+                if (par, cfg) == (32, "on"):
+                    check(seen >= 2, f"max_batch_seen {seen} at parallelism 32: no shard coalesced")
+        traces = _FORWARD_KERNEL.trace_count() - traces0
+        check(traces <= len(PS_BATCH_POLICY.padding_buckets),
+              f"the shard product traced {traces} new shapes")
+        step_counts("forward")
+        check(not steps["forward"], f"fan-out Forward launched copy kernels: {steps['forward']}")
+        wall_us, busy_us, by_name = device_profile(
+            torch, lambda: closed_loop(stubs, req, x_bytes, 32, 0.3))
+        T.reset_launch_counts()
+        if busy_us > 0:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            print(f"[profile] shard fan-out forward p32 on: wall {wall_us:.0f} us, device busy "
+                  f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%); top "
+                  + ", ".join(f"{name[:40]} {us:.0f} us" for name, us in top))
+        else:
+            print(f"[profile] shard fan-out forward p32 on: wall {wall_us:.0f} us, device "
+                  f"time not measured (the profiler returned no CUDA events)")
+
+        # ---- keyed routing: Get/Put on the owning shard only -------------
+        keys = [f"key{i}" for i in range(SHARD_KEYS)]
+        check([sh.shard_of(k) for k in keys[:16]] == SHARD_GOLDEN,
+              f"shard_of differs from the JAX package's: {[sh.shard_of(k) for k in keys[:16]]}")
+        vals = torch.randn((SHARD_KEYS, *SHARD_VALUE), generator=g, device=dev)
+        host_vals = vals.cpu().numpy()
+        stub = ps_stub(sh)
+        kput_s, kget_s = [], []
+        for i, k in enumerate(keys[:KEYED_KEYS]):
+            owner = sh.shard_of(k)
+            before = calls("Put")
+            c = Controller()
+            c.request_attachment.append_device(vals[i])
+            _, dt = timed(lambda: stub.Put(c, EchoRequest(message=k)))
+            check(not c.failed(), f"keyed Put {k} failed: {c.error_text()}")
+            kput_s.append(dt)
+            check(c.shard_index == owner and delta(before, "Put") == [int(j == owner) for j in range(n)],
+                  f"keyed Put {k}: shard {c.shard_index}, deltas {delta(before, 'Put')}, owner {owner}")
+            check([j for j, s in enumerate(svcs) if k in s._store] == [owner],
+                  f"{k} is not on its owner alone")
+            before = calls("Get")
+            c = Controller()
+            _, dt = timed(lambda: stub.Get(c, EchoRequest(message=k)))
+            check(not c.failed(), f"keyed Get {k} failed: {c.error_text()}")
+            kget_s.append(dt)
+            got = c.response_attachment.device_arrays()
+            check(len(got) == 1 and torch.equal(got[0], vals[i]), f"keyed Get {k}: other bytes")
+            check(delta(before, "Get") == [int(j == owner) for j in range(n)],
+                  f"keyed Get {k}: deltas {delta(before, 'Get')}, owner {owner}")
+        for k in keys[:KEYED_KEYS]:  # leave the shards to the reshard's keyspace
+            c = Controller()
+            r = stub.Delete(c, EchoRequest(message=k))
+            check(not c.failed() and r.message == "1", f"Delete {k}: {c.error_text()}")
+        step_counts("keyed")
+        check(steps["keyed"] == {"copy_csum_blocks": 2 * KEYED_KEYS},
+              f"keyed Put/Get launched {steps['keyed']}: expected one K1 per hop")
+        vmb = vals[0].nbytes / (1 << 20)
+        say(f"keyed routing: {KEYED_KEYS} Puts and Gets of ({SHARD_VALUE[0]}, {d}) f32 "
+            f"({vmb:.1f} MiB) each one RPC on shard_of(key); shard_of equals the JAX package's "
+            f"golden list; Put {median_ms(kput_s):.3f} ms, Get {median_ms(kget_s):.3f} ms median")
+
+        # ---- the replicated PS: 2 groups x 3 replicas -------------------
+        rsvcs = [PsService() for _ in range(6)]
+        rservers = [start(c, s) for c, s in zip(REPL_CHIPS, rsvcs)]
+        servers += rservers
+        reps_ep = [f"ici://slice0/chip{c}" for c in REPL_CHIPS]
+
+        def put(stub, k, i):
+            c = Controller()
+            c.request_attachment.append_device(vals[i])
+            stub.Put(c, EchoRequest(message=k))
+            return c
+
+        def get_ok(stub, k, i):
+            c = Controller()
+            stub.Get(c, EchoRequest(message=k))
+            return c, (not c.failed() and same_value(c.response_attachment, vals[i], host_vals[i]))
+
+        def mixed(stub, rkeys, ncalls):
+            lats, errs = [], 0
+            t0 = time.perf_counter()
+            for j in range(ncalls):
+                t1 = time.perf_counter()
+                if j % 4 == 1:
+                    ok = not put(stub, rkeys[j % len(rkeys)], j % len(rkeys)).failed()
+                else:
+                    ok = get_ok(stub, rkeys[j % len(rkeys)], j % len(rkeys))[1]
+                lats.append(time.perf_counter() - t1)
+                errs += 0 if ok else 1
+            wall = time.perf_counter() - t0
+            lats.sort()
+            return ncalls / wall, pct(lats, 0.5) * 1e3, pct(lats, 0.99) * 1e3, errs
+
+        rkeys = [f"rkey{i}" for i in range(REPL_OPS)]
+        # RF=1: one replica per group delegates to the plain ShardRoutedChannel
+        plain = sharded_ps_channel(endpoints=[reps_ep[0], reps_ep[3]],
+                                   timeout_ms=SHARD_TIMEOUT_MS, channel_options=opts())
+        rf1 = replicated_ps_channel([[reps_ep[0]], [reps_ep[3]]], register=False,
+                                    name_prefix="smoke-rf1", channel_options=opts(),
+                                    timeout_ms=SHARD_TIMEOUT_MS)
+        check(rf1.rf1 and isinstance(rf1._direct, ShardRoutedChannel),
+              "RF=1 did not delegate to the plain ShardRoutedChannel")
+        for i, k in enumerate(rkeys[:RF1_KEYS]):
+            check(not put(ps_stub(plain), k, i).failed(), f"RF=1 fill Put {k}")
+        for warm in (plain, rf1):  # connections and code paths out of the timing
+            mixed(ps_stub(warm), rkeys[:RF1_KEYS], RF1_KEYS)
+        off1 = mixed(ps_stub(plain), rkeys[:RF1_KEYS], RF1_CALLS)
+        on = mixed(ps_stub(rf1), rkeys[:RF1_KEYS], RF1_CALLS)
+        off2 = mixed(ps_stub(plain), rkeys[:RF1_KEYS], RF1_CALLS)
+        check(off1[3] == on[3] == off2[3] == 0, f"RF=1 errors {off1[3]}, {on[3]}, {off2[3]}")
+        check(all(v == 0 for grp in rf1.groups for v in grp.counters.values()),
+              "RF=1 ran replication (its counters moved)")
+        rf1_pct = ((off1[0] + off2[0]) / 2 / on[0] - 1) * 100
+        step_counts("replicated_rf1")
+        say(f"RF=1 (2 groups x 1): plain {off1[0]:.1f} / {off2[0]:.1f} qps, replicated channel "
+            f"{on[0]:.1f} qps (overhead {rf1_pct:.1f}%), p99 {on[2]:.3f} ms; delegates to "
+            f"ShardRoutedChannel, counters 0")
+        for c in (plain, rf1):
+            for p in (c.partitions() if hasattr(c, "partitions") else c._direct.partitions()):
+                p.close()
+
+        rep = replicated_ps_channel([reps_ep[:3], reps_ep[3:]], register=False,
+                                    name_prefix="smoke-rf3", lease_ttl_s=5.0, hedge_ms=10,
+                                    channel_options=opts(), timeout_ms=SHARD_TIMEOUT_MS)
+        rstub = ps_stub(rep)
+        qput_s, qget_s = [], []
+        for i, k in enumerate(rkeys):
+            c, dt = timed(lambda: put(rstub, k, i))
+            check(not c.failed(), f"quorum Put {k} failed: {c.error_text()}")
+            qput_s.append(dt)
+        for i, k in enumerate(rkeys):
+            (c, ok), dt = timed(lambda: get_ok(rstub, k, i))
+            check(ok, f"replicated Get {k}: {c.error_text() if c.failed() else 'other bytes'}")
+            qget_s.append(dt)
+        rf3 = mixed(rstub, rkeys, RF3_CALLS)
+        puts = REPL_OPS + sum(1 for j in range(RF3_CALLS) if j % 4 == 1)
+        qw = sum(grp.counters["quorum_writes"] for grp in rep.groups)
+        lc = sum(grp.counters["leader_changes"] for grp in rep.groups)
+        check(rf3[3] == 0 and qw >= puts and lc == 0,
+              f"RF=3: {rf3[3]} errors, quorum_writes {qw} for {puts} puts, leader_changes {lc}")
+        step_counts("replicated_rf3")
+        say(f"RF=3 (2 groups x 3 replicas): {REPL_OPS} quorum Puts of {vmb:.1f} MiB "
+            f"{median_ms(qput_s):.3f} ms, {REPL_OPS} Gets {median_ms(qget_s):.3f} ms median; "
+            f"mixed {rf3[0]:.1f} qps, p50 {rf3[1]:.3f} ms, p99 {rf3[2]:.3f} ms; quorum_writes "
+            f"{qw} >= puts {puts}, leader changes {lc}")
+
+        # a replica 64 writes behind, repaired from the group
+        g1 = rep.groups[1]
+        lagger = next(nd for nd in g1.nodes if nd is not g1.ensure_leader())
+        g1.mark_dead(lagger.name)
+        behind = [k for k in rkeys if rep.shard_of(k) == 1][:REPL_BEHIND]
+        check(len(behind) == REPL_BEHIND, f"only {len(behind)} keys on group 1")
+        for k in behind:  # new values while the lagger is out
+            i = rkeys.index(k)
+            j = (i + 1) % REPL_OPS
+            c = put(rstub, k, j)
+            check(not c.failed(), f"Put {k} with a replica out: {c.error_text()}")
+        g1.mark_alive(lagger.name)
+        copied, repair_dt = timed(lambda: g1.repair(lagger.name))
+        check(copied == REPL_BEHIND and g1.counters["repair_keys"] == REPL_BEHIND,
+              f"repair copied {copied}, repair_keys {g1.counters['repair_keys']}; "
+              f"expected {REPL_BEHIND}")
+        for k in behind:
+            j = (rkeys.index(k) + 1) % REPL_OPS
+            v = lagger.store.read(k)
+            check(v == host_vals[j].tobytes(), f"the repaired replica's {k} differs")
+        step_counts("repair")
+        say(f"repair of a replica {REPL_BEHIND} writes behind: {repair_dt * 1e3:.1f} ms "
+            f"(repair_keys {copied}), its values equal the group's")
+
+        # kill group 0's leader mid-write: every acked write reads back
+        kill = replicated_ps_channel([reps_ep[:3]], register=False, name_prefix="smoke-kill",
+                                     lease_ttl_s=1.0, hedge_ms=20, channel_options=opts(),
+                                     timeout_ms=SHARD_TIMEOUT_MS)
+        kstub = ps_stub(kill)
+        g0 = kill.groups[0]
+        leader = g0.ensure_leader()
+        check(leader is not None, "no leader elected")
+        victim = rservers[reps_ep.index(leader.endpoint)]
+        acked, codes, timing = {}, [], {}
+        for j in range(KILL_PUTS):
+            k = f"wk{j}"
+            c = put(kstub, k, j)
+            codes.append(c.error_code)
+            if not c.failed():
+                acked[k] = j
+                if "killed" in timing and "recovered" not in timing:
+                    timing["recovered"] = time.monotonic()
+            if j == KILL_PUTS // 4:
+                victim.stop()
+                g0.mark_dead(leader.name)
+                timing["killed"] = time.monotonic()
+        lost = [k for k, j in acked.items() if not get_ok(kstub, k, j)[1]]
+        check(not lost, f"{len(lost)} acked writes lost after the leader kill: {lost[:5]}")
+        check("recovered" in timing, "no write acked after the leader kill")
+        check(all(cd in ERROR_WHITELIST for cd in codes), f"non-ERPC codes {set(codes)}")
+        failover = timing["recovered"] - timing["killed"]
+        check(failover < g0.lease_ttl_s + 2.0 and g0.counters["leader_changes"] >= 1,
+              f"failover {failover:.2f} s, leader changes {g0.counters['leader_changes']}")
+        step_counts("leader_kill")
+        say(f"leader killed at write {KILL_PUTS // 4} of {KILL_PUTS}: {len(acked)} acked, 0 "
+            f"lost, failover {failover:.3f} s (lease {g0.lease_ttl_s} s), leader changes "
+            f"{g0.counters['leader_changes']}, error codes {sorted(set(codes))}")
+
+        # ---- live reshard 2 -> 4 under load ----------------------------
+        old_ch = sharded_ps_channel(endpoints=eps[:2], timeout_ms=SHARD_TIMEOUT_MS,
+                                    channel_options=opts())
+        channels.append(old_ch)
+        view = MigrationView()
+        dyn = DynamicShardChannel(old_ch, sh, view)
+        scatter_param(old_ch, "w2", W)  # the old scheme's layout; "w" is the new one's
+        bkeys = [f"bkey{i}" for i in range(SHARD_KEYS)]
+        dstub = ps_stub(dyn)
+        for i, k in enumerate(bkeys):
+            c = put(dstub, k, i)
+            check(not c.failed(), f"reshard fill Put {k}: {c.error_text()}")
+        step_counts("reshard_fill")
+        planned = moved_keys(bkeys, 2, 4)
+        phase_box = ["pre"]
+        records, wrong, lock = [], [], threading.Lock()
+        stop = threading.Event()
+        x0 = x_bytes[0]
+
+        def load_loop():
+            j = 0
+            while not stop.is_set():
+                phase = phase_box[0]
+                t0 = time.perf_counter()
+                if j % 4 == 3:  # fan-out Forward on the scheme the channel would take
+                    primary = dyn.channels()[0]
+                    c = Controller()
+                    c.request_attachment.append_user_data(x0)
+                    ps_stub(primary).Forward(
+                        c, EchoRequest(message="w2" if primary is old_ch else "w"))
+                    if not c.failed():
+                        y = torch.from_numpy(np.frombuffer(
+                            bytearray(c.response_attachment.to_bytes()), np.float32)).to(dev)
+                        if past_f64(y, ref[0], scale[0])[0]:
+                            wrong.append(("Forward", phase))
+                else:
+                    i = j % len(bkeys)
+                    if j % 8 == 1:
+                        c = put(dstub, bkeys[i], i)
+                    else:
+                        c, ok = get_ok(dstub, bkeys[i], i)
+                        if not c.failed() and not ok:
+                            wrong.append((bkeys[i], phase))
+                dt = time.perf_counter() - t0
+                with lock:
+                    records.append((phase, dt, c.error_code))
+                j += 1
+
+        def count(phase):
+            with lock:
+                return sum(1 for p, _, _ in records if p == phase)
+
+        threads = [threading.Thread(target=load_loop) for _ in range(RESHARD_THREADS)]
+        for t in threads:
+            t.start()
+        durations = {}
+        try:
+            t0 = time.perf_counter()
+            while count("pre") < RESHARD_PHASE_CALLS:
+                time.sleep(0.005)
+            durations["pre"] = time.perf_counter() - t0
+            phase_box[0] = "during"
+            coord = ReshardCoordinator(
+                "smoke-ps", [PsShardStore(p) for p in old_ch.partitions()],
+                [PsShardStore(p) for p in sh.partitions()], view=view,
+                key_filter=lambda k: not k.startswith("w"))
+            mig, mig_s = timed(coord.run)
+            durations["during"] = mig_s
+            phase_box[0] = "post"
+            t0 = time.perf_counter()
+            while count("post") < RESHARD_PHASE_CALLS:
+                time.sleep(0.005)
+            durations["post"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(60.0)
+        check(not any(t.is_alive() for t in threads), "a reshard load thread hung")
+        cnt = mig["counters"]
+        codes = [e for _, _, e in records if e]
+        check(mig["completed"] and mig["epoch"] == 1 and cnt["keys_moved"] == len(planned)
+              and cnt["checksum_failures"] == 0,
+              f"reshard: completed {mig['completed']}, epoch {mig['epoch']}, moved "
+              f"{cnt['keys_moved']} of the scheme delta {len(planned)}, checksum failures "
+              f"{cnt['checksum_failures']}")
+        check(all(cd in ERROR_WHITELIST for cd in codes), f"non-ERPC codes {set(codes)}")
+        check(not wrong, f"{len(wrong)} wrong answers under the reshard: {wrong[:5]}")
+        for i, k in enumerate(bkeys):
+            holders = [j for j, s in enumerate(svcs) if k in s._store]
+            check(holders == [shard_of(k, 4)], f"{k} on shards {holders}, not {shard_of(k, 4)}")
+        step_counts("reshard")
+        with lock:
+            for name in ("pre", "during", "post"):
+                lats = sorted(dt for p, dt, _ in records if p == name)
+                errs = sum(1 for p, _, e in records if p == name and e)
+                say(f"reshard load {name:6}: {len(lats)} calls in {durations[name]:.3f} s, "
+                    f"{len(lats) / durations[name]:.1f} qps, p50 {pct(lats, 0.5) * 1e3:.3f} ms, "
+                    f"p99 {pct(lats, 0.99) * 1e3:.3f} ms, errors {errs}")
+        say(f"reshard 2 -> 4 under {RESHARD_THREADS} threads of Get/Put/fan-out Forward: "
+            f"{SHARD_KEYS} keys of {vmb:.1f} MiB, {cnt['keys_moved']} moved (scheme delta "
+            f"{len(planned)}) in {mig_s:.3f} s, {cnt['keys_moved'] / mig_s:.1f} keys/s, "
+            f"{cnt['keys_moved'] * vals[0].nbytes / mig_s / 1e9:.3f} GB/s; epoch {mig['epoch']}, "
+            f"checksum failures 0, error codes {sorted(set(codes))}, dual writes "
+            f"{dyn.dual_writes}, reads fell back {dyn.reads_fell_back}")
+    finally:
+        for ch in channels:
+            for p in ch.partitions():
+                p.close()
+        for srv in servers:
+            srv.stop()
+
+    counts = {k: sum(s.get(k, 0) for s in steps.values()) for k in T.launches}
+    say(f"launches per step {steps}")
+    return counts
+
+
+def closed_loop(stubs, req, x_bytes, inflight, duration):
+    """bench.py:2089-2150: Forward x_bytes[k % len] through the stubs in
+    turn, each completion issuing the next call, so `inflight` calls
+    stay outstanding for `duration`.  Returns (sorted latencies in us,
+    (x index, y bytes) per call, wall s, the window's oldest-generation
+    GC pauses in ms: one stalls every call in flight, so they set the
+    tail)."""
+    from incubator_brpc_tpu_torch.client.controller import Controller
+
+    lats, ys, errs, lock = [], [], [], threading.Lock()
+    gc_ms, gc_t0 = [], [0.0]
+
+    def on_gc(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms.append((time.perf_counter() - gc_t0[0]) * 1e3)
+    active = [inflight]
+    drained = threading.Event()
+    stop_at = time.monotonic() + duration
+
+    def issue(slot, k):
+        c = Controller()
+        c.timeout_ms = 20000
+        idx = k % len(x_bytes)
+        c.request_attachment.append_user_data(x_bytes[idx])
+        t0 = time.monotonic_ns()
+
+        def on_done():
+            now = time.monotonic()
+            with lock:
+                if c.failed():
+                    errs.append(c.error_text())
+                else:
+                    lats.append((time.monotonic_ns() - t0) // 1000)
+                    ys.append((idx, c.response_attachment.to_bytes()))
+            if now < stop_at:
+                issue(slot, k + inflight)
+                return
+            with lock:
+                active[0] -= 1
+                if active[0] == 0:
+                    drained.set()
+
+        stubs[slot % len(stubs)].Forward(c, req, done=on_done)
+
+    gc.callbacks.append(on_gc)
+    try:
+        t_start = time.monotonic()
+        for slot in range(inflight):
+            issue(slot, slot)
+        check(drained.wait(timeout=duration + 60), "Forward load did not drain")
+        wall = time.monotonic() - t_start
+    finally:
+        gc.callbacks.remove(on_gc)
+    check(not errs, f"Forward failed: {errs[:3]}")
+    lats.sort()
+    return lats, ys, wall, gc_ms
+
+
+def pct(lats, p):
+    return lats[min(len(lats) - 1, int(len(lats) * p))]
 
 
 def phase_products(torch, step, w, name, source, replaces, row_bytes=0, row_ops=0,
@@ -1253,8 +1876,10 @@ def phase_cluster(torch, T, child):
     )
     from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
     from incubator_brpc_tpu_torch.utils.endpoint import str2endpoint
-    from incubator_brpc_tpu_torch.utils.hashes import murmur3_32
+    from incubator_brpc_tpu_torch.utils.hashes import murmur3_32, murmur3_32_py, murmur3_native
 
+    check(murmur3_native(), "the native murmur3_32 is not in use: repair and reshard "
+                            "would hash in Python")
     dev = card(torch)
     TS, S = CLUSTER_SLICE, child.slice
     local_eps = [f"ici://slice{TS}/chip{j}" for j in range(3)]
@@ -1560,13 +2185,20 @@ def phase_cluster(torch, T, child):
         # both copies of each key the replicas share and each copied key
         # twice, the reshard each moved key twice
         one = host[0].tobytes()
+        hash_ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            murmur3_32(one)
+            hash_ts.append(time.perf_counter() - t0)
+        hash_s = statistics.median(hash_ts)
         t0 = time.perf_counter()
-        murmur3_32(one)
-        hash_s = time.perf_counter() - t0
+        check(murmur3_32_py(one) == murmur3_32(one), "native and Python murmur3_32 differ")
+        py_s = time.perf_counter() - t0
         hashes = {"repair": 2 * (REPL_PUTS - 1) + 2 * REPL_BEHIND, "reshard": 2 * c["keys_moved"]}
-        say(f"murmur3_32 of one {size} value on the host: {hash_s:.3f} s; the repair's "
+        say(f"murmur3_32 of one {size} value on the host, native: {hash_s * 1e3:.3f} ms "
+            f"median of 20 (the Python one: {py_s:.3f} s, equal); the repair's "
             f"{hashes['repair']} and the reshard's {hashes['reshard']} such hashes: "
-            f"{hashes['repair'] * hash_s:.1f} s and {hashes['reshard'] * hash_s:.1f} s")
+            f"{hashes['repair'] * hash_s:.3f} s and {hashes['reshard'] * hash_s:.3f} s")
 
         flush_all()
     finally:
@@ -1952,7 +2584,8 @@ def main() -> int:
     smi = phase_build()
     errs, main_csum = phase_kernels(torch, T)
     echo_counts = phase_echo(torch, T, main_csum)
-    ps_counts, products = phase_ps(torch, T)
+    ps_counts, products, ps_summary = phase_ps(torch, T)
+    shard_counts = phase_shard(torch, T, ps_summary)
     cache_counts = phase_cache(torch, T)
     stream_counts = phase_stream(torch, T)
     child = SmokeChild(card(torch), DCN_SLICE)
@@ -1965,12 +2598,13 @@ def main() -> int:
     products += phase_serve(torch)
     serve_counts = dict(T.launches)
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
-    paths = [echo_counts, ps_counts, cache_counts, stream_counts, dcn_counts, cluster_counts]
+    paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
+             cluster_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
-    print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; cache {cache_counts}; "
-          f"stream {stream_counts}; dcn {dcn_counts} (child {dcn_child_counts}); "
-          f"cluster {cluster_counts}; serve {serve_counts}")
-    for name, c in [("dcn", dcn_counts), ("cluster", cluster_counts)]:
+    print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
+          f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
+          f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}")
+    for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts)]:
         check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")
     check(cluster_counts["copy_csum_staged"] > 0, "K2 never launched on the cluster path")
     for k, v in totals.items():

@@ -15,9 +15,12 @@ behind the redis and memcache protocols (``cache/``); streams and the
 continuous-batched decode loop (``streaming/``); disaggregated
 prefill/decode serving (``serving/``); the DCN bridge between processes
 (``parallel/dcn.py``), cluster channels (naming services, load
-balancers), and the clustered cache tier on top: ``CacheChannel``,
-replicated cache groups (``replication/``) and live resharding
-(``resharding/``).  ROADMAP.md lists what remains.
+balancers), the combo channels (``client/combo.py``: parallel,
+selective, partition and shard-routed fan-out), and on top of them the
+clustered cache tier (``CacheChannel``) and the sharded parameter
+server (``sharded_ps_channel``, ``scatter_param``), each replicated
+(``replication/``) and live-resharded (``resharding/``).  ROADMAP.md
+lists what remains.
 """
 
 __version__ = "0.1.0"
@@ -36,9 +39,6 @@ def _lazy(name):
 _UNPORTED = {
     "Authenticator": 12,
     "AuthContext": 12,
-    "ParallelChannel": 5,
-    "SelectiveChannel": 12,
-    "PartitionChannel": 5,
 }
 
 
@@ -54,6 +54,9 @@ def __getattr__(name):
         "BatchPolicy": ("incubator_brpc_tpu_torch.batching.policy", "BatchPolicy"),
         "PsService": ("incubator_brpc_tpu_torch.models.parameter_server", "PsService"),
         "ps_stub": ("incubator_brpc_tpu_torch.models.parameter_server", "ps_stub"),
+        "ParallelChannel": ("incubator_brpc_tpu_torch.client.combo", "ParallelChannel"),
+        "SelectiveChannel": ("incubator_brpc_tpu_torch.client.combo", "SelectiveChannel"),
+        "PartitionChannel": ("incubator_brpc_tpu_torch.client.combo", "PartitionChannel"),
     }
     if name in mapping:
         mod, attr = mapping[name]

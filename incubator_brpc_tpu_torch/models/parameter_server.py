@@ -16,10 +16,14 @@ Where the port differs from the JAX package:
   stores the numpy array and lets ``jax.jit`` upload it on every call.
   A W that arrives by Put is the tensor the fabric delivered, stored as
   is.
-- **Single card only.**  The sharded store (``mesh=`` over more than one
-  chip, ``remesh``), ``sharded_ps_channel`` and ``scatter_param`` are
-  ROADMAP.md queue 1 item 5; the training step (``make_training_step``)
-  is item 13.  Each raises ``NotImplementedError`` naming its item.
+- **One store per server.**  The in-mesh sharded store (``mesh=`` over
+  more than one chip, ``remesh``) is ROADMAP.md queue 1 item 5 and the
+  training step (``make_training_step``) item 13; each raises
+  ``NotImplementedError`` naming its item.  The shard-per-server
+  deployment runs: ``sharded_ps_channel`` fans a Forward out over
+  several ``PsService`` servers, and ``scatter_param`` places each
+  shard's rows as a tensor on that shard's device, so every Put hop
+  runs the copy+checksum kernel.
 
 The product is ``torch.matmul`` in float32 with TF32 off (PyTorch's
 default, ``torch.backends.cuda.matmul.allow_tf32 = False``): the JAX
@@ -352,9 +356,8 @@ def ps_stub(channel) -> ServiceStub:
 # N PsService servers each own rows [k*d/N, (k+1)*d/N) of a parameter;
 # Forward fans out once — each shard contracts the matching slice of x
 # against its local rows and returns a PARTIAL y, merged client-side by
-# one fused sum (ops/merge.merge_partial_sum).  The channel that drives
-# the fan-out (sharded_ps_channel) is ROADMAP.md queue 1 item 5; the
-# leg and merge functions are host code and carried over.
+# one fused sum (ops/merge.merge_partial_sum).  Get/Put route to the
+# owning shard only (client/combo.ShardRoutedChannel).
 
 
 def ps_forward_prepare_leg(i, n, request, parent_ctrl, sub_ctrl):
@@ -397,11 +400,79 @@ def ps_forward_merge(parent_ctrl, parent_resp, sub_ctrls, sub_resps):
 
 def sharded_ps_channel(sub_channels=None, endpoints=None, fail_limit=0,
                        timeout_ms=20000, seed=0, channel_options=None):
-    unported("sharded_ps_channel (ShardRoutedChannel)", 5)
+    """A ShardRoutedChannel wired for PsService: keyed Get/Put routing
+    plus the Forward fan-out contract above.  Pass explicit
+    ``sub_channels`` or ``endpoints`` (e.g. ``ici_endpoints(mesh)``);
+    ``channel_options`` configures each endpoint's sub-channel (its
+    ``timeout_ms`` bounds a routed Get/Put and each scatter Put)."""
+    from incubator_brpc_tpu_torch.client.combo import (
+        ParallelChannelOptions,
+        ShardRoutedChannel,
+    )
+
+    opts = ParallelChannelOptions(fail_limit=fail_limit, timeout_ms=timeout_ms)
+    if endpoints is not None:
+        ch = ShardRoutedChannel.from_endpoints(
+            endpoints, options=opts, channel_options=channel_options,
+            seed=seed,
+        )
+    else:
+        ch = ShardRoutedChannel(options=opts, seed=seed)
+        ch.set_partitions(list(sub_channels or []))
+    ch.set_fanout("Forward", ps_forward_prepare_leg, ps_forward_merge)
+    return ch
+
+
+def _shard_device(part) -> torch.device:
+    """Where shard ``part``'s rows are made: the device of its server's
+    fabric port when that server runs in this process, else the
+    channel's ``ici_device``, else the card of its chip (raises with
+    neither a card nor a device)."""
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+    from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
+
+    ep = getattr(part, "_endpoint", None)
+    coords = ep.coords if ep is not None and ep.is_ici() else None
+    port = get_fabric().port(coords) if coords is not None else None
+    if port is not None and port.device is not None:
+        return torch.device(port.device)
+    options = getattr(part, "options", None)
+    return device_for_chip(coords[1] if coords else 0,
+                           getattr(options, "ici_device", None))
 
 
 def scatter_param(shard_channel, key: str, w) -> None:
-    unported("scatter_param (row-scattered parameters)", 5)
+    """Row-scatter a parameter across the shard servers: shard k gets
+    rows [k*d/n, (k+1)*d/n) as a device payload under the same key.
+    After this, a fan-out Forward against `key` serves the full matrix.
+
+    A numpy ``w`` is sliced and made a tensor on each shard's device
+    (``_shard_device``); a tensor ``w`` gives each shard a contiguous
+    row slice on its own device.  A failed Put fails the scatter."""
+    from incubator_brpc_tpu_torch.client.controller import Controller
+
+    parts = shard_channel.partitions()
+    n = len(parts)
+    d = int(w.shape[0])
+    if n == 0 or d % n:
+        raise ValueError(f"{d} rows do not scatter over {n} shards")
+    rows = d // n
+    for i, part in enumerate(parts):
+        lo, hi = i * rows, (i + 1) * rows
+        if isinstance(w, torch.Tensor):
+            block = w[lo:hi].contiguous()
+        else:
+            block = torch.from_numpy(np.ascontiguousarray(w[lo:hi])).to(
+                _shard_device(part)
+            )
+        stub = ps_stub(part)
+        c = Controller()
+        c.request_attachment.append_device(block)
+        stub.Put(c, EchoRequest(message=key))
+        if c.failed():
+            raise RuntimeError(
+                f"scatter_param: shard {i} Put failed: {c.error_text()}"
+            )
 
 
 def make_training_step(mesh, dim: int = 256, batch: int = 32, lr: float = 0.01):

@@ -151,7 +151,8 @@ class Stream:
         self._span = None  # "stream" rpcz span joined to the RPC's trace
         # ordered delivery through an execution queue (stream.cpp uses
         # bthread::ExecutionQueue for exactly this); items are
-        # (message, deferred_feedback_bytes)
+        # (message, deferred_feedback_bytes), and the close and failure
+        # notices queue behind them
         self._rx = ExecutionQueue(self._consume_batch)
 
     # ---- negotiation --------------------------------------------------------
@@ -452,10 +453,23 @@ class Stream:
             self._mark_failed(errors.ECLOSE, "stream reset by peer")
 
     def _consume_batch(self, batch):
-        items = list(batch)
-        if not items:
+        # items are (message, deferred_feedback_bytes) or a close/failure
+        # notice (a callable): a notice runs after the messages queued
+        # before it, so on_closed never overtakes the last DATA batch
+        msgs, fed = [], 0
+        for item in batch:
+            if callable(item):
+                self._deliver(msgs, fed)
+                msgs, fed = [], 0
+                item()
+            else:
+                msgs.append(item[0])
+                fed += item[1]
+        self._deliver(msgs, fed)
+
+    def _deliver(self, msgs, fed: int) -> None:
+        if not msgs:
             return
-        msgs = [m for m, _ in items]
         handler = self.options.handler
         if handler is not None:
             try:
@@ -463,7 +477,7 @@ class Stream:
             except Exception as e:  # noqa: BLE001
                 log_error("stream handler raised: %r", e)
         # consumed-bytes feedback unblocks the remote writer
-        self._note_consumed(sum(fb for _, fb in items))
+        self._note_consumed(fed)
 
     def _note_consumed(self, n: int) -> None:
         """Accumulate consumed bytes; FEEDBACK goes out once the batch
@@ -613,20 +627,20 @@ class Stream:
         self._close_span(self._failed[0])
         handler = self.options.handler
         if handler is not None:
-            # spawned, never inline: a CLOSE frame may be processed on
+            # queued, never inline: a CLOSE frame may be processed on
             # the SENDER's thread (ici inline client-port delivery), and
             # user code blocking there would wedge the sender — the
             # reference likewise runs stream callbacks on bthread
-            # workers, not the IO thread (stream.cpp on_closed path)
-            from incubator_brpc_tpu_torch.runtime import scheduler
-
+            # workers, not the IO thread (stream.cpp on_closed path).
+            # The receive queue's consumer runs on a scheduler worker,
+            # behind every DATA batch already queued.
             def _notify(h=handler, s=self):
                 try:
                     h.on_closed(s)
                 except Exception as e:  # noqa: BLE001
                     log_error("stream on_closed raised: %r", e)
 
-            scheduler.spawn(_notify)
+            self._rx.execute(_notify)
 
     def _mark_failed(self, code: int, text: str):
         self._failed = (code, text)
@@ -634,16 +648,14 @@ class Stream:
             self._flow_cond.notify_all()
         handler = self.options.handler
         if handler is not None:
-            # spawned for the same reason as on_closed above
-            from incubator_brpc_tpu_torch.runtime import scheduler
-
+            # queued behind the pending DATA, as on_closed is above
             def _notify(h=handler, s=self):
                 try:
                     h.on_failed(s, code, text)
                 except Exception as e:  # noqa: BLE001
                     log_error("stream on_failed raised: %r", e)
 
-            scheduler.spawn(_notify)
+            self._rx.execute(_notify)
         self._mark_closed()
 
     def on_socket_failed(self, code: int, text: str):

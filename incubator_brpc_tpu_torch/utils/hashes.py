@@ -5,12 +5,24 @@ framing checksums; murmur3_32 matches butil::MurmurHash32 used by
 consistent-hashing load balancers. A C++ native implementation (see
 native/) is used when present; these pure-Python versions are the
 always-available fallback and the source of truth for test vectors.
+
+murmur3_32 runs natively: ``murmur3.c`` beside this file is built with
+the host C compiler (``cc``) on first use into ``_build/`` and bound
+with ctypes.  If the build fails, that is logged once and the
+pure-Python ``murmur3_32_py`` runs instead; ``murmur3_native()`` says
+which one is in use.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import pathlib
 import random
 import struct
+import subprocess
+import threading
 
 # ---- crc32c (Castagnoli, poly 0x1EDC6F41 reflected = 0x82F63B78) ----------
 _CRC32C_TABLE = []
@@ -54,7 +66,71 @@ def crc32c(data: bytes, crc: int = 0) -> int:
 
 
 # ---- murmur3 32-bit (butil::MurmurHash32) ---------------------------------
+_MURMUR_SRC = pathlib.Path(__file__).resolve().with_name("murmur3.c")
+_BUILD_DIR = _MURMUR_SRC.parent / "_build"
+_CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+_murmur_lock = threading.Lock()
+_murmur_c = None  # None: not tried yet; False: the build failed
+
+
+def _build_murmur3():
+    """Build murmur3.c (once per source and flags) and bind it; raises
+    OSError or CalledProcessError when it cannot."""
+    src = _MURMUR_SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(_CC_FLAGS).encode()).hexdigest()
+    target = _BUILD_DIR / f"libmurmur3-{digest[:16]}.so"
+    if not target.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a per-process temporary, then an atomic rename: concurrent
+        # builders (test workers) never see a half-written library
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(
+            ["cc", *_CC_FLAGS, "-o", str(tmp), str(_MURMUR_SRC)],
+            check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, target)
+    fn = ctypes.CDLL(str(target)).brpc_murmur3_32
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32]
+    fn.restype = ctypes.c_uint32
+    return fn
+
+
+def _murmur3_fn():
+    global _murmur_c
+    with _murmur_lock:
+        if _murmur_c is None:
+            try:
+                _murmur_c = _build_murmur3()
+            except (OSError, subprocess.SubprocessError) as e:
+                from incubator_brpc_tpu_torch.utils.logging import log_error
+
+                err = getattr(e, "stderr", None) or b""
+                log_error(
+                    "native murmur3_32 unavailable, using the Python one: "
+                    "%r %s", e, err.decode(errors="replace")[-400:],
+                )
+                _murmur_c = False
+        return _murmur_c
+
+
+def murmur3_native() -> bool:
+    """True when murmur3_32 runs the native build (builds it now if it
+    was not tried yet)."""
+    return bool(_murmur3_fn())
+
+
 def murmur3_32(data: bytes, seed: int = 0) -> int:
+    fn = _murmur_c if _murmur_c is not None else _murmur3_fn()
+    if not fn:
+        return murmur3_32_py(data, seed)
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return fn(data, len(data), seed & 0xFFFFFFFF)
+
+
+def murmur3_32_py(data: bytes, seed: int = 0) -> int:
+    """The pure-Python murmur3_32: the fallback, and the reference the
+    native build is tested against."""
     c1, c2 = 0xCC9E2D51, 0x1B873593
     h = seed & 0xFFFFFFFF
     nblocks = len(data) // 4

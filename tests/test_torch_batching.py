@@ -902,10 +902,12 @@ def test_ps_unported_branches_and_device_default(monkeypatch):
     assert svc.shard_kernel is None and svc.remesh(None) == 0
     with pytest.raises(NotImplementedError, match="item 5"):
         svc.remesh(_Mesh(2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.sharded_ps_channel(endpoints=[])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.scatter_param(None, "w", None)
+    # the shard-per-server channel is ported: it builds, and a scatter
+    # over no shard is refused (tests/test_torch_sharded_ps.py runs it)
+    empty = P.sharded_ps_channel(endpoints=[])
+    assert empty.partition_count() == 0
+    with pytest.raises(ValueError, match="do not scatter"):
+        P.scatter_param(empty, "w", np.zeros((4, 4), np.float32))
     with pytest.raises(NotImplementedError, match="item 13"):
         P.make_training_step(None)
     assert P.max_servable_dim(64 << 20) == 4096

@@ -608,18 +608,20 @@ def test_replicated_cache_group_quorum_and_bulk_repair_match():
 
 
 def test_replicated_ps_channel_raises_naming_its_item():
-    """The combo channels are not ported: a replicated PS channel raises
-    NotImplementedError naming ROADMAP item 12, never ImportError."""
-    from incubator_brpc_tpu_torch.replication import (
-        ReplicaGroup,
-        ReplicaNode,
-        ReplicatedShardChannel,
-    )
+    """The combo channels are ported, so a replicated shard channel no
+    longer raises: over the same groups it builds in both packages and
+    routes every key to the same group (tests/test_torch_sharded_ps.py
+    drives it over live PS servers)."""
+    def build(P):
+        R = P.replication
+        groups = [R.ReplicaGroup(f"combo.g{i}", [R.ReplicaNode("n1", MemStore()),
+                                                 R.ReplicaNode("n2", MemStore())])
+                  for i in range(3)]
+        ch = R.ReplicatedShardChannel(groups, seed=1)
+        return ch.rf1, ch.partition_count(), [ch.shard_of(f"key{i}") for i in range(64)]
 
-    groups = [ReplicaGroup("combo.g0", [ReplicaNode("n1", MemStore()),
-                                        ReplicaNode("n2", MemStore())])]
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ReplicatedShardChannel(groups)
+    rf1, n, owners = both(build)
+    assert rf1 is False and n == 3 and set(owners) == {0, 1, 2}
 
 
 # ---------------------------------------------------------------------------

@@ -291,3 +291,51 @@ def test_batched_forward_on_the_card(cuda_device):
     ref = xs.astype(np.float64) @ w.astype(np.float64)
     scale = np.abs(xs).astype(np.float64) @ np.abs(w).astype(np.float64)
     assert np.all(np.abs(np.stack(ys) - ref) <= 2e-6 * scale)
+
+
+def test_sharded_scatter_and_fanout_forward_on_the_card(cuda_device):
+    """scatter_param places each shard's rows on the card with one K1
+    per Put hop; a fan-out Forward issues one leg per shard and its y
+    is within 2e-6 x (|x| @ |W|) of the float64 product."""
+    from incubator_brpc_tpu_torch import ChannelOptions, Controller, Server
+    from incubator_brpc_tpu_torch.models.parameter_server import (
+        PsService,
+        ps_stub,
+        scatter_param,
+        sharded_ps_channel,
+    )
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+
+    d, n = 1024, 4
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    w = torch.randn((d, d), generator=g, device=cuda_device) / d ** 0.5
+    svcs, servers = [PsService() for _ in range(n)], []
+    try:
+        for chip, svc in enumerate(svcs):
+            srv = Server()
+            srv.add_service(svc)
+            assert srv.start_ici(40, chip) == 0
+            servers.append(srv)
+        ch = sharded_ps_channel(
+            endpoints=[f"ici://slice40/chip{k}" for k in range(n)],
+            channel_options=ChannelOptions(timeout_ms=30000, ici_device=cuda_device))
+        TT.reset_launch_counts()
+        scatter_param(ch, "w", w)
+        assert TT.launches["copy_csum_blocks"] == n
+        rows = d // n
+        for i, svc in enumerate(svcs):
+            got = svc._store["w"]
+            assert got.device == cuda_device and torch.equal(got, w[i * rows:(i + 1) * rows])
+        x = torch.randn((d,), generator=g, device=cuda_device).cpu().numpy()
+        c = Controller()
+        c.request_attachment.append_user_data(x.tobytes())
+        ps_stub(ch).Forward(c, EchoRequest(message="w"))
+        assert not c.failed(), c.error_text()
+        y = np.frombuffer(c.response_attachment.to_bytes(), np.float32)
+    finally:
+        for srv in servers:
+            srv.stop()
+    w64 = w.double().cpu().numpy()
+    ref = x.astype(np.float64) @ w64
+    scale = np.abs(x).astype(np.float64) @ np.abs(w64)
+    assert np.all(np.abs(y - ref) <= 2e-6 * scale)

@@ -374,15 +374,17 @@ def test_unported_branches_raise_not_implemented():
         Channel(ChannelOptions(ssl_options=object())).init("127.0.0.1:1")
     with pytest.raises(NotImplementedError):
         Channel(ChannelOptions(connection_type="native")).init("127.0.0.1:1")
-    # the combo channels: the fan-out ones come with the collectives
+    # the combo channels are ported and exported as the JAX package
+    # exports them; the authenticator is not
+    import incubator_brpc_tpu_torch as port
     from incubator_brpc_tpu_torch.client import combo
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        combo.ParallelChannel
-    with pytest.raises(NotImplementedError, match="item 12"):
-        combo.ManualClusterChannel
-    with pytest.raises(NotImplementedError, match="item 5"):
-        from incubator_brpc_tpu_torch import PartitionChannel  # noqa: F401
+    assert port.ParallelChannel is combo.ParallelChannel
+    assert port.SelectiveChannel is combo.SelectiveChannel
+    assert port.PartitionChannel is combo.PartitionChannel
+    for name in ("Authenticator", "AuthContext"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            getattr(port, name)
     with pytest.raises(NotImplementedError, match="item 12"):
         Server(ServerOptions(native_engine=True)).start(0)
     srv = Server(ServerOptions(rpc_dump_dir="rpc_dump"))
@@ -471,6 +473,34 @@ g = replicated_cache_group("guard", [cc], register=False)
 g.put("k", b"v" * 64)
 assert cc.get_host("k") == b"v" * 64 and moved_keys(["k"], 1, 2) is not None
 cc.close(); srv.stop(); get_bridge().close()
+# the combo channels: a sharded PS fan-out, its replicated and
+# live-resharded forms, the cluster observability plane, the native hash
+import numpy as np
+from incubator_brpc_tpu_torch.client.combo import DynamicShardChannel
+from incubator_brpc_tpu_torch.models.parameter_server import (
+    PsService, ps_stub, scatter_param, sharded_ps_channel)
+from incubator_brpc_tpu_torch.observability import cluster, trace
+from incubator_brpc_tpu_torch.replication import replicated_ps_channel
+from incubator_brpc_tpu_torch.resharding import MigrationView
+from incubator_brpc_tpu_torch.tools import rpc_view
+from incubator_brpc_tpu_torch.utils.hashes import murmur3_32
+eps, servers = [], []
+for chip in (80, 81):
+    srv = Server(); srv.add_service(PsService(device=cpu))
+    assert srv.start_ici(3, chip, device=cpu) == 0
+    servers.append(srv); eps.append(f"ici://slice3/chip{chip}")
+opts = ChannelOptions(timeout_ms=30000, ici_device=cpu)
+sh = sharded_ps_channel(endpoints=eps, timeout_ms=30000, channel_options=opts)
+w = np.arange(16 * 16, dtype=np.float32).reshape(16, 16)
+scatter_param(sh, "w", w)
+c = Controller(); c.request_attachment.append_user_data(np.ones(16, np.float32).tobytes())
+ps_stub(sh).Forward(c, EchoRequest(message="w"))
+assert not c.failed(), c.error_text()
+assert np.array_equal(np.frombuffer(c.response_attachment.to_bytes(), np.float32), w.sum(0))
+dyn = DynamicShardChannel(sharded_ps_channel(endpoints=eps[:1], channel_options=opts), sh, MigrationView())
+rep = replicated_ps_channel([[e] for e in eps], register=False, channel_options=opts)
+assert rep.rf1 and murmur3_32(b"guard") == 2201486462
+for srv in servers: srv.stop()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))
