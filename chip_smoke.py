@@ -111,7 +111,26 @@ file.  Phases, each fatal on failure:
              decode step at buckets 1, 8 and 32 is held to float64 as the
              Forward product is (states and row sums), and a TF32 step
              must fail that check;
-10. times  — each kernel's time at the main path's shapes beside its
+10. http   — the HTTP front on the card: GenerateSSE over
+             Channel(protocol="http") on a d = 6144 decode loop, its
+             tokens equal to the tpu_std stream path's at p = 1 (at p = 8
+             the differing tokens are counted), with time to the first
+             data event and tokens/s of both; AdmitSSE on a d = 6144
+             DecodeService behind a PrefillService, equal to the stream
+             Admit with prefill_executions 1; every builtin page of a
+             server that has just run PS Put/Get/Forward at d = 6144 and
+             64 MB echoes answers with the JAX package's status code
+             (/status counts, /metrics Prometheus text, /rpcz spans,
+             /cache, /serving, /replication and /resharding live);
+             /hotspots/device?seconds=2 under 64 MB echoes (fused and
+             pallas in turns) with no trace_error, ici.* families, K1 in
+             the exported torch.profiler trace with its CUDA time and K1
+             launches grown; /hotspots/hbm's tags, census and <dark>, 0
+             up to the allocator's rounding after ?rebase=1; the pages on
+             internal_port only; rpc_dump of PS Forward calls (device x
+             over ici://, one host-view pull per sample) replayed by
+             rpc_replay to a fresh server, each y held to float64;
+11. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(), K1 on the PS path's
              W and on one 8 MB chunk with a carry (the pipelined mode's
              launch, walked over a 64 MB frame so that the L2 is cold,
@@ -124,7 +143,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 10 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 11 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -136,13 +155,18 @@ from __future__ import annotations
 import argparse
 import faulthandler
 import gc
+import itertools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import tracemalloc
+import urllib.error
+import urllib.request
 
 SEED = 1234
 RUN_DEADLINE_S = 1150  # the whole run's budget, inside its 1200 s limit
@@ -196,6 +220,66 @@ SHARD_KEYS = 256
 KEYED_KEYS = 32
 # shard_of("key0".."key15") under seed 0 over 4 shards: the JAX
 # package's ShardRoutedChannel.shard_of (murmur3_32) on the same keys
+# http: the SSE fronts, the builtin pages, rpc_dump
+HTTP_SLICE = 8  # ici://slice8/chip0: the pages' server; chip1: the dumping server
+HTTP_TOKENS = 32
+HTTP_SSE_P = 8  # prompts, run one at a time (p = 1) and all at once
+HTTP_ADMITS = 4
+HTTP_FORWARDS = 16
+HTTP_ECHOES = 4
+HTTP_CACHE = 64 << 20
+HTTP_CAPTURE_S = 2
+HTTP_DUMPS = 16
+# every page JAX register_builtin_services registers, with the status
+# the JAX package answers to a GET of it on a fresh server
+# (tests/test_torch_builtin.py holds both packages to this list)
+BUILTIN_STATUS = {
+    "/": 200,
+    "/admission": 200,
+    "/batching": 200,
+    "/bthreads": 200,
+    "/cache": 200,
+    "/chaos": 200,
+    "/cluster/export": 200,
+    "/cluster/latency_breakdown": 400,
+    "/cluster/metrics": 400,
+    "/cluster/stragglers": 200,
+    "/connections": 200,
+    "/dir": 403,
+    "/flags": 200,
+    "/health": 200,
+    "/hotspots/contention": 200,
+    "/hotspots/cpu": 200,
+    "/hotspots/device": 200,
+    "/hotspots/growth": 200,
+    "/hotspots/hbm": 200,
+    "/hotspots/heap": 200,
+    "/hotspots/runtime": 200,
+    "/ids": 200,
+    "/index": 200,
+    "/latency_breakdown": 200,
+    "/list": 200,
+    "/metrics": 200,
+    "/pprof/cmdline": 200,
+    "/pprof/growth": 200,
+    "/pprof/heap": 200,
+    "/pprof/profile": 200,
+    "/pprof/symbol": 200,
+    "/protobufs": 200,
+    "/replication": 200,
+    "/resharding": 200,
+    "/rpc_dump": 200,
+    "/rpcz": 200,
+    "/rpcz/export": 400,
+    "/serving": 200,
+    "/sockets": 200,
+    "/status": 200,
+    "/threads": 200,
+    "/vars": 200,
+    "/version": 200,
+    "/vlog": 200,
+}
+BUILTIN_QUERY = {"/pprof/profile": "?seconds=0.1", "/hotspots/cpu": "?seconds=0.1"}
 SHARD_GOLDEN = [3, 1, 0, 0, 1, 3, 3, 1, 2, 2, 1, 0, 3, 0, 3, 0]
 REPL_OPS = 256
 RF1_KEYS = 24
@@ -2407,6 +2491,639 @@ def decode_check(torch, loop, buckets=(1, 8, 32)):
             check(tst[0] + tsm[0] > 0, "the decode check did not refuse a TF32 step")
 
 
+def http_get(port, path, method="GET", body=b""):
+    """One HTTP/1.1 request to 127.0.0.1:port: (status, body text)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=body or None)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read().decode("utf-8", "replace")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8", "replace")
+
+
+PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? -?([0-9.eE+-]+|NaN|[+-]?Inf)$')
+PROM_TYPE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|summary|histogram|untyped)$")
+
+
+def check_prometheus(text):
+    """Every line of /metrics is a # TYPE/# HELP line or a sample."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    samples = 0
+    for ln in lines:
+        if ln.startswith("# TYPE"):
+            check(PROM_TYPE.match(ln) is not None, f"/metrics: bad TYPE line {ln!r}")
+        elif ln.startswith("#"):
+            check(ln.startswith("# HELP "), f"/metrics: bad comment {ln!r}")
+        else:
+            check(PROM_LINE.match(ln) is not None, f"/metrics: not a sample {ln!r}")
+            samples += 1
+    return samples
+
+
+class TokenSink:
+    """A stream handler that keeps each frame's text and the first
+    frame's arrival time."""
+
+    def __init__(self, t0):
+        self.t0, self.first = t0, None
+        self.frames, self.failures = [], []
+        self.closed = threading.Event()
+
+    def on_received_messages(self, stream, messages):
+        if self.first is None:
+            self.first = time.monotonic() - self.t0
+        self.frames.extend(m.to_bytes().decode() for m in messages)
+
+    def on_half_close(self, stream):
+        pass
+
+    def on_closed(self, stream):
+        self.closed.set()
+
+    def on_failed(self, stream, code, text):
+        self.failures.append((code, text))
+        self.closed.set()
+
+
+def sse_call(stub_method, req):
+    """One SSE call read progressively: (data events without the
+    terminator, seconds to the first data event, seconds to [DONE])."""
+    from incubator_brpc_tpu_torch.client.controller import Controller
+
+    c = Controller()
+    c.response_will_be_read_progressively()
+    t0 = time.monotonic()
+    stub_method(c, req)
+    check(not c.failed(), f"SSE call failed: {c.error_text()}")
+    parts, first, end = [], [None], threading.Event()
+
+    def reader(part):
+        if part is None:
+            end.set()
+            return
+        if first[0] is None and b"data: " in part:
+            first[0] = time.monotonic() - t0
+        parts.append(part)
+
+    check(c.read_progressive_attachment(reader) == 0, "the SSE response is not progressive")
+    check(end.wait(120), "an SSE stream never finished")
+    body = b"".join(parts).decode()
+    events = [ln[6:] for ln in body.split("\n") if ln.startswith("data: ")]
+    check(events and events[-1] == "[DONE]", f"SSE stream without [DONE]: {events[-2:]}")
+    return events[:-1], first[0], time.monotonic() - t0
+
+
+def run_parallel(fn, args):
+    """fn(*a) for every a at once, one thread each; the results in order."""
+    out, errs = [None] * len(args), []
+
+    def one(i):
+        try:
+            out[i] = fn(*args[i])
+        except BaseException as e:  # noqa: BLE001 — a failed check, reported below
+            errs.append(f"{i}: {e!r}")
+    ts = [threading.Thread(target=one, args=(i,)) for i in range(len(args))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(180)
+    check(not any(t.is_alive() for t in ts), "a parallel call never finished")
+    check(not errs, f"parallel calls failed: {errs[:3]}")
+    return out
+
+
+def http_generate_sse(torch, dev):
+    """GenerateSSE over Channel(protocol="http") against the tpu_std
+    stream path (Generate) of the same server, both at d = 6144."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server
+    from incubator_brpc_tpu_torch.streaming.generate import (
+        DecodeLoop,
+        GenerateService,
+        generate_stub,
+    )
+    from incubator_brpc_tpu_torch.streaming.stream import Stream
+
+    n, prompts = HTTP_TOKENS, [f"sse prompt {i}" for i in range(HTTP_SSE_P)]
+    gen = GenerateService(DecodeLoop(dim=SERVE_DIM, device=dev))
+    srv = Server()
+    srv.add_service(gen)
+    check(srv.start(0) == 0, "GenerateService server failed to start")
+    channels = []
+    try:
+        gen.loop.prewarm()
+        check(gen.loop.device == dev, f"decode loop on {gen.loop.device}")
+        http = Channel(ChannelOptions(protocol="http", timeout_ms=120000))
+        std = Channel(ChannelOptions(timeout_ms=120000))
+        for ch in (http, std):
+            check(ch.init(f"127.0.0.1:{srv.port}") == 0, "channel init failed")
+            channels.append(ch)
+
+        def sse(prompt):
+            return sse_call(generate_stub(http).GenerateSSE,
+                            EchoRequest(message=prompt, code=n))
+
+        def stream(prompt):
+            t0 = time.monotonic()
+            sink, c = TokenSink(t0), Controller()
+            s = Stream.create(c, sink)
+            r = generate_stub(std).Generate(c, EchoRequest(message=prompt, code=n))
+            check(not c.failed() and r.message == "streaming", f"Generate: {c.error_text()}")
+            check(s.wait_established(30) and sink.closed.wait(120), "a token stream never closed")
+            check(not sink.failures, f"token stream failed: {sink.failures}")
+            return sink.frames, sink.first, time.monotonic() - t0
+
+        sse("warm up"), stream("warm up")
+        solo = {}
+        for p in (1, HTTP_SSE_P):
+            runs = {}
+            for name, fn in (("sse", sse), ("stream", stream)):
+                t0 = time.monotonic()
+                if p == 1:
+                    out = [fn(q) for q in prompts]
+                else:
+                    out = run_parallel(fn, [(q,) for q in prompts])
+                wall = time.monotonic() - t0
+                for q, (toks, _, _) in zip(prompts, out):
+                    check(len(toks) == n, f"{name}: {len(toks)} tokens of {n} for {q!r}")
+                runs[name] = ([o[0] for o in out], [o[1] for o in out], wall)
+            if p == 1:
+                for q, a, b in zip(prompts, runs["sse"][0], runs["stream"][0]):
+                    check(a == b, f"p1 {q!r}: SSE tokens {a[:4]} differ from the stream's {b[:4]}")
+                solo = dict(zip(prompts, runs["sse"][0]))
+            diff = {k: sum(x != y for q, toks in zip(prompts, v[0])
+                           for x, y in zip(toks, solo[q])) for k, v in runs.items()}
+            calls = len(prompts) if p == 1 else p
+            print(f"[http] GenerateSSE p{p}: " + "; ".join(
+                f"{k} {calls * n / v[2]:.1f} tokens/s, first data median "
+                f"{statistics.median(v[1]) * 1e3:.2f} ms" for k, v in runs.items())
+                + (f"; every SSE token equal to the stream's ({len(prompts)} prompts x {n})"
+                   if p == 1 else
+                   f"; tokens differing from each prompt's p1 run: sse {diff['sse']}, "
+                   f"stream {diff['stream']} of {p * n}"))
+        check(gen.sse_rows >= 1 + len(prompts) * 2, f"sse_rows {gen.sse_rows}")
+    finally:
+        for ch in channels:
+            ch.close()
+        srv.stop()
+        gen.close()
+
+
+def http_admit_sse(torch, dev):
+    """AdmitSSE on a DecodeService at d = 6144 behind a PrefillService
+    (the serve phase's layout) against the stream Admit."""
+    from incubator_brpc_tpu_torch.cache import HBMCacheStore
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server
+    from incubator_brpc_tpu_torch.serving.decode import DecodeService, decode_stub
+    from incubator_brpc_tpu_torch.serving.prefill import PrefillService, prefill_stub
+    from incubator_brpc_tpu_torch.serving.router import SessionChannel
+    from incubator_brpc_tpu_torch.streaming.generate import DecodeLoop
+    from incubator_brpc_tpu_torch.streaming.stream import Stream
+
+    n, layers = HTTP_TOKENS, SERVE_LAYERS
+    store = HBMCacheStore(SERVE_STORE, device=dev)
+    pf = PrefillService(store, dim=SERVE_DIM, n_layers=layers, device=dev)
+    dec = DecodeService(store, DecodeLoop(dim=SERVE_DIM, device=dev), name="http-d0")
+    srv = Server()
+    srv.add_service(pf)
+    srv.add_service(dec)
+    check(srv.start(0) == 0, "prefill/decode server failed to start")
+    channels = []
+    try:
+        pf.prewarm()
+        dec.loop.prewarm()
+        http = Channel(ChannelOptions(protocol="http", timeout_ms=120000))
+        std = Channel(ChannelOptions(timeout_ms=120000))
+        for ch in (http, std):
+            check(ch.init(f"127.0.0.1:{srv.port}") == 0, "channel init failed")
+            channels.append(ch)
+
+        def prefill(session, prompt):
+            c = Controller()
+            r = prefill_stub(std).Prefill(c, EchoRequest(message=json.dumps(
+                {"session": session, "prompt": prompt})))
+            check(not c.failed(), f"Prefill {session}: {c.error_text()}")
+            check(json.loads(r.message)["prefill_executions"] == 1, f"{session}: {r.message}")
+
+        def admit_req(session):
+            return EchoRequest(message=json.dumps(
+                {"session": session, "kv_epoch": 0, "n_layers": layers, "max_tokens": n}))
+
+        def stream_admit(session):
+            t0 = time.monotonic()
+            sink, c = TokenSink(t0), Controller()
+            s = Stream.create(c, sink)
+            r = decode_stub(std).Admit(c, admit_req(session))
+            check(not c.failed() and r.message == "streaming", f"Admit: {c.error_text()}")
+            check(s.wait_established(30) and sink.closed.wait(120), "an Admit stream never closed")
+            check(not sink.failures, f"Admit stream failed: {sink.failures}")
+            return sink.frames, sink.first, time.monotonic() - t0
+
+        rows = []
+        for i in range(HTTP_ADMITS):
+            prompt = f"admit prompt {i}"
+            for sid in (f"http-sse-{i}", f"http-std-{i}"):
+                prefill(sid, prompt)
+            ev, first, wall = sse_call(decode_stub(http).AdmitSSE, admit_req(f"http-sse-{i}"))
+            fr, sfirst, swall = stream_admit(f"http-std-{i}")
+            check([e.split()[0] for e in ev] == [str(k) for k in range(n)],
+                  f"AdmitSSE indices {[e.split()[0] for e in ev][:4]}")
+            check([e.split()[1] for e in ev] == [f.split()[1] for f in fr],
+                  f"AdmitSSE tokens differ from the stream Admit's for {prompt!r}")
+            for sid in (f"http-sse-{i}", f"http-std-{i}"):
+                check(pf.prefill_executions[sid] == 1, f"{sid}: prefill ran more than once")
+            rows.append((first, wall, sfirst, swall))
+            if i == 0:
+                sse_first = [e.split()[1] for e in ev]
+        # one session through the router, for /serving: the same tokens
+        routed = SessionChannel(pf, [dec]).generate("http-router", "admit prompt 0", n)
+        check(routed.tokens == sse_first and routed.prefill_executions == 1,
+              "the routed session's tokens differ from AdmitSSE's")
+        med = lambda k: statistics.median(r[k] for r in rows) * 1e3  # noqa: E731
+        print(f"[http] AdmitSSE p1 at d = {SERVE_DIM} behind prefill ({layers} layers): "
+              f"{HTTP_ADMITS} sessions x {n} tokens equal to the stream Admit's, "
+              f"prefill_executions 1 each; first data median {med(0):.2f} ms, "
+              f"{n / (med(1) / 1e3):.1f} tokens/s (stream Admit {med(2):.2f} ms, "
+              f"{n / (med(3) / 1e3):.1f} tokens/s); sse_rows {dec.sse_rows}")
+    finally:
+        for ch in channels:
+            ch.close()
+        srv.stop()
+        dec.close()
+        store.flush()
+
+
+def ps_forward_ref(torch, W, x_rows):
+    """float64 reference and scale of y = x @ W for the check."""
+    x = x_rows.double()
+    return x @ W.double(), x.abs() @ W.abs().double()
+
+
+def http_pages(torch, T, dev):
+    """The builtin pages over HTTP from a server that has just run PS
+    Forward at d = 6144 and 64 MB echoes; then /hotspots/device while a
+    client thread echoes, /hotspots/hbm with a rebase.  Returns the
+    copy kernels' launch counts of the phase's main path."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.cache import CacheChannel, HBMCacheService, HBMCacheStore
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.replication import replicated_cache_group
+    from incubator_brpc_tpu_torch.replication.group import unregister_group
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    d = PS_DIM
+    fabric = get_fabric()
+    check(fabric.chunk_mode == "fused", f"fabric left in {fabric.chunk_mode} mode")
+    store = HBMCacheStore(HTTP_CACHE, device=dev)
+    srv = Server(ServerOptions(redis_service=HBMCacheService(store=store)))
+    ps = PsService(device=dev)
+    srv.add_service(ps)
+    srv.add_service(EchoService())
+    check(srv.start(0) == 0 and srv.start_ici(HTTP_SLICE, 0, device=dev) == 0,
+          "the pages' server failed to start")
+    ep = f"ici://slice{HTTP_SLICE}/chip0"
+    opts = ChannelOptions(timeout_ms=60000, ici_device=dev)
+    ch, cc = Channel(opts), None
+    try:
+        check(ch.init(ep) == 0, "ici channel init failed")
+        T.reset_launch_counts()  # the path's run starts here
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+        c = Controller()
+        c.request_attachment.append_device(W)
+        ps_stub(ch).Put(c, EchoRequest(message="w"))
+        check(not c.failed(), f"Put of W: {c.error_text()}")
+        c = Controller()
+        ps_stub(ch).Get(c, EchoRequest(message="w"))
+        check(not c.failed() and torch.equal(c.response_attachment.device_arrays()[0], W),
+              f"Get of W: {c.error_text()}")
+        xs = torch.randn((HTTP_FORWARDS, d), generator=g, device=dev)
+        ref, scale = ps_forward_ref(torch, W, xs)
+        xh = xs.cpu().numpy()
+        for i in range(HTTP_FORWARDS):
+            c = Controller()
+            c.request_attachment.append_user_data(xh[i].tobytes())
+            ps_stub(ch).Forward(c, EchoRequest(message="w"))
+            check(not c.failed(), f"Forward: {c.error_text()}")
+            y = torch.from_numpy(np.frombuffer(bytearray(c.response_attachment.to_bytes()),
+                                               np.float32)).to(dev)
+            bad, worst = past_f64(y, ref[i], scale[i])
+            check(bad == 0, f"Forward {i}: {bad} outputs off by up to {worst:.3g}")
+        x0 = make_payload(torch, MAIN_SHAPE, torch.float32, SEED)
+
+        def echo(x):
+            c = Controller()
+            c.request_attachment.append_device(x)
+            echo_stub(ch).Echo(c, EchoRequest(message="pages"))
+            check(not c.failed(), f"64 MB echo: {c.error_text()}")
+            return c.response_attachment.device_arrays()[0]
+
+        for _ in range(HTTP_ECHOES):
+            check(torch.equal(echo(x0), x0), "the 64 MB echo came back changed")
+        cc = CacheChannel(f"list://{ep}", lb="rr", options=opts)
+        group = replicated_cache_group("smoke.http", [cc], endpoints=[ep])
+        value = bytes(range(256)) * 16  # the replicated group moves host bytes
+        check(group.put("http-key", value), "a quorum put to the pages' cache failed")
+        check(cc.get_host("http-key") == value, "the cache read back other bytes")
+
+        # ---- every registered page, with the JAX package's status code --
+        t0 = time.perf_counter()
+        tracing, page_s = tracemalloc.is_tracing(), {}
+        try:
+            for page, want in BUILTIN_STATUS.items():
+                t1 = time.perf_counter()
+                st, body = http_get(srv.port, page + BUILTIN_QUERY.get(page, ""))
+                page_s[page] = time.perf_counter() - t1
+                check(st == want, f"{page}: status {st}, the JAX package answers {want}: "
+                                  f"{body[:200]!r}")
+        finally:
+            if not tracing:  # the heap pages start tracemalloc; it slows every later phase
+                tracemalloc.stop()
+        check(set(srv._builtin_handlers) == set(BUILTIN_STATUS),
+              f"registered pages {sorted(set(srv._builtin_handlers) ^ set(BUILTIN_STATUS))} "
+              f"differ from the JAX package's")
+        pages_s = time.perf_counter() - t0
+        _, status = http_get(srv.port, "/status")
+        counts = {m: int(re.search(rf"^{re.escape(m)}:\n  count=(\d+)", status, re.M).group(1))
+                  for m in ("PsService.Put", "PsService.Get", "PsService.Forward")}
+        check(all(v > 0 for v in counts.values()), f"/status counts {counts}")
+        samples = check_prometheus(http_get(srv.port, "/metrics")[1])
+        _, rpcz = http_get(srv.port, "/rpcz")
+        check("PsService.Forward" in rpcz and "EchoService.Echo" in rpcz, "/rpcz has no spans")
+        cache = json.loads(http_get(srv.port, "/cache")[1])
+        check(cache["enabled"] and cache["stores"][0]["entries"] >= 1, f"/cache {cache}")
+        serving = json.loads(http_get(srv.port, "/serving")[1])
+        check("http-router" in serving["sessions"], "/serving does not list the routed session")
+        repl = json.loads(http_get(srv.port, "/replication")[1])
+        check("smoke.http" in repl["groups"], f"/replication {sorted(repl['groups'])}")
+        mig = json.loads(http_get(srv.port, "/resharding")[1])["migrations"]
+        check(len(mig) > 0, "/resharding lists no migration")
+        slowest = sorted(page_s.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[http] builtin pages: {len(BUILTIN_STATUS)} answered with the JAX package's "
+              f"status codes in {pages_s:.2f} s (slowest "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in slowest)
+              + f"); /status counts {counts}; /metrics "
+              f"{samples} Prometheus samples; /rpcz spans of Forward and Echo; /cache "
+              f"{cache["stores"][0]["entries"]} entries; /serving {len(serving['sessions'])} "
+              f"sessions; /replication {sorted(repl['groups'])}; /resharding {sorted(mig)}")
+
+        kernels_seen = http_capture(torch, T, srv.port, echo, x0)
+        http_hbm(srv.port)
+        counts = dict(T.launches)  # ... and ends here
+        unregister_group("smoke.http")
+    finally:
+        if cc is not None:
+            cc.close()
+        ch.close()
+        srv.stop()
+        store.flush()
+    return counts, kernels_seen
+
+
+def http_capture(torch, T, port, echo, x0):
+    """/hotspots/device?seconds=N while a client thread echoes 64 MB over
+    ici://, fused and pallas in turns (the fused transmit has no
+    dispatch-window family in either package; pallas has ici.pallas).
+    Returns K1's (and K2's) mean CUDA time from the exported trace."""
+    from incubator_brpc_tpu_torch.observability import profiling
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+
+    fabric = get_fabric()
+    profiling.device_capture(0.1)  # the profiler's first start, outside the window
+    stop, seen = threading.Event(), []
+
+    def load():
+        for mode in itertools.cycle(("fused", "pallas")):
+            if stop.is_set():
+                return
+            fabric.chunk_mode = mode
+            seen.append(torch.equal(echo(x0), x0))
+
+    k1_0, k2_0 = T.launches["copy_csum_blocks"], T.launches["copy_csum_staged"]
+    t = threading.Thread(target=load)
+    t.start()
+    try:
+        st, text = http_get(port, f"/hotspots/device?seconds={HTTP_CAPTURE_S}")
+    finally:
+        stop.set()
+        t.join(60)
+        fabric.chunk_mode = "fused"
+    check(not t.is_alive() and seen and all(seen), "the capture's echo load failed")
+    check(st == 200, f"/hotspots/device: {st} {text[:300]!r}")
+    check("trace: unavailable" not in text, f"trace_error set: {text[:400]!r}")
+    fams = {m.group(3): (int(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"^\s+(\d+)\s+([0-9.]+)\s+[0-9.]+\s+(\S+)$", text, re.M)}
+    ici = {k: v for k, v in fams.items() if k.startswith("ici.")}
+    check(ici and all(v[0] > 0 for v in ici.values()), f"no ici.* family in {fams}")
+    trace_dir = re.search(r"^trace_dir: (.+)$", text, re.M).group(1)
+    trace = json.loads((pathlib.Path(trace_dir) / profiling.TRACE_FILE).read_text())
+    kern = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            kern.setdefault(e["name"], []).append(float(e.get("dur", 0.0)))
+    k1 = [v for k, v in kern.items() if "copy_csum_blocks_kernel" in k]
+    k2 = [v for k, v in kern.items() if "copy_csum_staged" in k]
+    k1_us = [x for v in k1 for x in v]
+    k2_us = [x for v in k2 for x in v]
+    check(len(k1_us) > 0, f"the trace names no K1 kernel: {sorted(kern)[:8]}")
+    grew = T.launches["copy_csum_blocks"] - k1_0
+    check(grew > 0, "K1 launches did not grow during the capture")
+    print(f"[http] /hotspots/device?seconds={HTTP_CAPTURE_S}: {len(seen)} 64 MB echoes "
+          f"(fused and pallas in turns) during the window; families "
+          f"{ {k: v[0] for k, v in ici.items()} }; trace {trace_dir}: K1 "
+          f"{len(k1_us)} launches, mean {statistics.mean(k1_us) / 1e3:.4f} ms of CUDA time"
+          + (f", K2 {len(k2_us)}, mean {statistics.mean(k2_us) / 1e3:.4f} ms" if k2_us else "")
+          + f"; K1 launches counted {grew}, K2 "
+          f"{T.launches['copy_csum_staged'] - k2_0}")
+    kernels_seen = {"k1_trace_ms": statistics.mean(k1_us) / 1e3}
+    if k2_us:
+        kernels_seen["k2_trace_ms"] = statistics.mean(k2_us) / 1e3
+    return kernels_seen
+
+
+def http_hbm(port):
+    """/hotspots/hbm: the ledger's tags, the census and <dark>; after
+    ?rebase=1, <dark> is 0 up to the allocator's rounding."""
+
+    def hbm():
+        text = http_get(port, "/hotspots/hbm")[1]
+        cen = re.search(r"^census: source=(\S+) bytes=(\d+) baseline=(\d+)"
+                        r"(?: rounding=(\d+))?", text, re.M)
+        dark = int(re.search(r"^<dark>: (\d+) bytes", text, re.M).group(1))
+        tags = {m.group(3): int(m.group(1)) for m in re.finditer(
+            r"^\s+(\d+)\s+(\d+) @ (\S+)$", text, re.M)}
+        return cen, dark, tags, text
+
+    cen, dark, tags, _ = hbm()
+    check(cen is not None and cen.group(1) == "memory_stats", "/hotspots/hbm has no census")
+    print(f"[http] /hotspots/hbm: tags {tags}; census memory_stats {cen.group(2)} B, "
+          f"rounding {cen.group(4)} B; <dark> {dark} B")
+    st, text = http_get(port, "/hotspots/hbm?rebase=1")
+    check(st == 200 and "rebased" in text, f"rebase: {text!r}")
+    cen, dark, tags, text = hbm()
+    rounding = int(cen.group(4) or 0)
+    check(dark <= rounding, f"<dark> {dark} B after the rebase, past the allocator's "
+                            f"rounding {rounding} B: {text[:400]!r}")
+    print(f"[http] /hotspots/hbm after ?rebase=1: baseline {cen.group(3)} B, <dark> "
+          f"{dark} B (the page states the allocator's rounding: {rounding} B)")
+
+
+def http_internal_port():
+    """internal_port: the pages answer there and are refused on the
+    public port, where pb services still answer."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    srv = Server(ServerOptions(internal_port=0))
+    srv.add_service(EchoService())
+    check(srv.start(0) == 0 and srv.internal_port > 0, "internal_port did not start")
+    try:
+        codes = {}
+        for page in ("/status", "/vars", "/hotspots/hbm"):
+            codes[page] = (http_get(srv.internal_port, page)[0], http_get(srv.port, page)[0])
+            check(codes[page] == (200, 403), f"{page}: internal/public {codes[page]}")
+        ch = Channel(ChannelOptions(timeout_ms=10000))
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "channel init failed")
+        c = Controller()
+        r = echo_stub(ch).Echo(c, EchoRequest(message="public"))
+        check(not c.failed() and r.message == "public", f"Echo on the public port: {c.error_text()}")
+        ch.close()
+        st, _ = http_get(srv.internal_port, "/EchoService/Echo", "POST", b'{"message": "x"}')
+        check(st == 404, f"a pb call on the internal port answered {st}")
+        print(f"[http] internal_port {srv.internal_port}: pages internal/public {codes}; "
+              f"Echo answers on the public port only")
+    finally:
+        srv.stop()
+
+
+def http_rpc_dump(torch, dev, tmp):
+    """rpc_dump samples PS Forward calls carrying device x over ici://
+    (the same calls run unsampled first: Forward reads x as bytes, so
+    each call pulls it to the host once either way); rpc_replay sends
+    the samples to a fresh server, whose every y is held to float64."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.analysis.device_witness import transfer_counts
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.observability.rpc_dump import list_dump_files, read_samples
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.tools.rpc_replay import replay
+
+    d, dump_dir = PS_DIM, str(tmp / "rpc_dump")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+    src = Server(ServerOptions(rpc_dump_dir=dump_dir))
+    ps = PsService(device=dev)
+    ps.put_param("w", W)
+    src.add_service(ps)
+    check(src.start(0) == 0 and src.start_ici(HTTP_SLICE, 1, device=dev) == 0,
+          "the dumping server failed to start")
+    # the replay is fire-and-forget: the target's own Forward keeps each
+    # call's (x, y) bytes for the check
+    replayed = []
+    dst_ps = PsService(device=dev)
+    dst_ps.put_param("w", W)
+    forward = dst_ps.Forward
+
+    def recorded(controller, request, response, done):
+        def done_recording():
+            replayed.append((controller.request_attachment.to_bytes(),
+                             controller.response_attachment.to_bytes()))
+            done()
+        return forward(controller, request, response, done_recording)
+
+    dst_ps.Forward = recorded  # add_service binds the instance's attribute
+    dst = Server()
+    dst.add_service(dst_ps)
+    check(dst.start(0) == 0, "the replay target failed to start")
+    ch = Channel(ChannelOptions(timeout_ms=60000, ici_device=dev))
+    try:
+        check(ch.init(f"ici://slice{HTTP_SLICE}/chip1") == 0, "ici channel init failed")
+        xs = torch.randn((HTTP_DUMPS, d), generator=g, device=dev)
+
+        def forwards():
+            pulls0 = transfer_counts().get("iobuf.host-view", 0)
+            for i in range(HTTP_DUMPS):
+                c = Controller()
+                c.request_attachment.append_device(xs[i].clone())
+                ps_stub(ch).Forward(c, EchoRequest(message="w"))
+                check(not c.failed(), f"Forward {i}: {c.error_text()}")
+            return transfer_counts().get("iobuf.host-view", 0) - pulls0
+
+        st, body = http_get(src.port, "/rpc_dump?disable=1", "POST")
+        check(st == 200 and src._rpc_dump_ctx is None, f"disarming rpc_dump: {body}")
+        pulls_off = forwards()
+        st, body = http_get(src.port, f"/rpc_dump?dir={dump_dir}&ratio=1", "POST")
+        check(st == 200 and json.loads(body)["enabled"], f"arming rpc_dump: {body}")
+        pulls = forwards()
+        ctx = src._rpc_dump_ctx
+        samples = [s for f in list_dump_files(dump_dir) for s in read_samples(f)]
+        check(ctx.sampled == len(samples) == HTTP_DUMPS,
+              f"{ctx.sampled} sampled, {len(samples)} read back, {HTTP_DUMPS} calls")
+        check(pulls == len(samples), f"{pulls} host-view pulls for {len(samples)} samples")
+        n = replay(f"127.0.0.1:{dst.port}", dump_dir, qps=1000, report=lambda *_: None)
+        check(n == len(samples), f"replayed {n} of {len(samples)}")
+        deadline = time.monotonic() + 60
+        while len(replayed) < n and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(len(replayed) == n, f"the replay target answered {len(replayed)} of {n}")
+        worst = 0.0
+        for xb, yb in replayed:
+            x = torch.from_numpy(np.frombuffer(bytearray(xb), np.float32)).to(dev)
+            y = torch.from_numpy(np.frombuffer(bytearray(yb), np.float32)).to(dev)
+            ref, scale = ps_forward_ref(torch, W, x[None])
+            bad, w = past_f64(y, ref[0], scale[0])
+            check(bad == 0, f"a replayed y is off by up to {w:.3g} of |x| @ |W|")
+            worst = max(worst, w)
+        print(f"[http] rpc_dump: {len(samples)} Forward calls (device x over ici://) "
+              f"sampled into {len(list_dump_files(dump_dir))} file(s), {pulls} host-view "
+              f"pulls ({pulls_off} for the same calls unsampled); rpc_replay sent {n} to a fresh server, every y within {PS_RTOL} of "
+              f"|x| @ |W| (worst {worst:.3g})")
+    finally:
+        ch.close()
+        src.stop()
+        dst.stop()
+
+
+def phase_http(torch, T):
+    """The HTTP front on the card: SSE token streaming, the builtin
+    pages with the device profiler, internal_port, rpc_dump and replay.
+    Returns (launch counts of the path, trace kernel times)."""
+    import tempfile
+
+    dev = card(torch)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off")
+    t0 = time.perf_counter()
+    http_generate_sse(torch, dev)
+    http_admit_sse(torch, dev)
+    counts, kernels_seen = http_pages(torch, T, dev)
+    http_internal_port()
+    with tempfile.TemporaryDirectory(prefix="smoke-dump-") as tmp:
+        http_rpc_dump(torch, dev, pathlib.Path(tmp))
+    print(f"[http] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts, kernels_seen
+
+
 def profile_windows(torch, fn, what, kernel=None, windows: int = 3, tries: int = 8):
     """Up to ``windows`` profiler windows over fn() that saw CUDA work
     (those whose name holds ``kernel``, or any), as (busy_us, by_name):
@@ -2598,13 +3315,16 @@ def main() -> int:
     products += phase_serve(torch)
     serve_counts = dict(T.launches)
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
+    http_counts, http_trace = phase_http(torch, T)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
-             cluster_counts]
+             cluster_counts, http_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
-          f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}")
-    for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts)]:
+          f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
+          f"http {http_counts}")
+    for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),
+                    ("http", http_counts)]:
         check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")
     check(cluster_counts["copy_csum_staged"] > 0, "K2 never launched on the cluster path")
     for k, v in totals.items():
@@ -2615,6 +3335,10 @@ def main() -> int:
     rows = phase_times(torch, T, errs, totals)
     rows[0]["dcn_frame_max_abs_err"] = dcn_err
     rows[1].update(k2_stack)
+    # the /hotspots/device capture's profiler trace, beside [times]
+    rows[0]["http_capture_trace_ms"] = http_trace["k1_trace_ms"]
+    if "k2_trace_ms" in http_trace:
+        rows[1]["http_capture_trace_ms"] = http_trace["k2_trace_ms"]
     print(json.dumps({"products": products}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -37,8 +37,8 @@ def _lazy(name):
 
 # re-exports not ported yet → their ROADMAP.md queue 1 item
 _UNPORTED = {
-    "Authenticator": 12,
-    "AuthContext": 12,
+    "Authenticator": 20,
+    "AuthContext": 20,
 }
 
 

@@ -9,9 +9,9 @@ ChannelOptions mirrors channel.h:41-140 and keeps every field of the
 JAX package's, with ``ici_device`` a ``torch.device``; a cluster
 channel's client ICI port lives on it too.
 
-Not carried over yet, each raising NotImplementedError when asked for
-(ROADMAP.md queue 1 item 12): the native C++ connection type and its
-submission ring (``call_many``), and TLS.
+Not carried over yet, each raising NotImplementedError when asked for:
+TLS (ROADMAP.md queue 1 item 12), and the native C++ connection type
+and its submission ring (``call_many``, item 22).
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ class Channel:
         only safe with one outstanding request per connection."""
         ct = self.options.connection_type
         if ct == "native":
-            unported("connection_type='native' (the C++ engine)", 12)
+            unported("connection_type='native' (the C++ engine)", 22)
         if ct not in ("single", "pooled", "short", ""):
             log_error("unknown connection_type %r, using single", ct)
             self.options.connection_type = "single"
@@ -154,10 +154,10 @@ class Channel:
 
     def call_many(self, method_spec, requests, timeout_ms=None,
                   controllers=None):
-        unported("call_many (the native submission ring)", 12)
+        unported("call_many (the native submission ring)", 22)
 
     def submission_ring(self, depth: int = 128):
-        unported("submission_ring (the native submission ring)", 12)
+        unported("submission_ring (the native submission ring)", 22)
 
     # ---- socket selection (Controller::IssueRPC hooks) ---------------------
     def _select_socket(self, controller):

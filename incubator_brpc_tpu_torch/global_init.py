@@ -4,6 +4,10 @@ Analog of reference GlobalInitializeOrDie (global.cpp:379-580): runs
 once, registers every built-in protocol, naming service, load balancer
 and compress handler, and exposes default process variables. Called by
 Server.start and Channel.init (the reference calls it from both too).
+
+The port imports the modules it has carried over without a guard, so a
+broken one fails here; only the protocols still to port (ROADMAP.md
+queue 1 item 19) are skipped when their module is missing.
 """
 
 from __future__ import annotations
@@ -24,36 +28,22 @@ def global_init():
         from incubator_brpc_tpu_torch.protocols import tpu_std
 
         tpu_std.register()
-        try:
-            from incubator_brpc_tpu_torch.protocols import streaming
+        from incubator_brpc_tpu_torch.protocols import http as http_proto
+        from incubator_brpc_tpu_torch.protocols import streaming
 
-            streaming.register()
-        except ImportError:
-            pass
-        try:
-            from incubator_brpc_tpu_torch.protocols import http as http_proto
-
-            http_proto.register()
-        except ImportError:
-            pass
+        streaming.register()
+        http_proto.register()
         try:
             from incubator_brpc_tpu_torch.protocols import h2 as h2_proto
 
             h2_proto.register()
         except ImportError:
             pass
-        try:
-            from incubator_brpc_tpu_torch.protocols import redis as redis_proto
+        from incubator_brpc_tpu_torch.protocols import memcache as memcache_proto
+        from incubator_brpc_tpu_torch.protocols import redis as redis_proto
 
-            redis_proto.register()
-        except ImportError:
-            pass
-        try:
-            from incubator_brpc_tpu_torch.protocols import memcache as memcache_proto
-
-            memcache_proto.register()
-        except ImportError:
-            pass
+        redis_proto.register()
+        memcache_proto.register()
         try:
             from incubator_brpc_tpu_torch.protocols import thrift as thrift_proto
 
@@ -80,12 +70,9 @@ def global_init():
         except ImportError:
             pass
         # naming services + load balancers self-register on import
-        try:
-            from incubator_brpc_tpu_torch.client import naming_service  # noqa: F401
-            from incubator_brpc_tpu_torch.client import naming_remote  # noqa: F401
-            from incubator_brpc_tpu_torch.client import load_balancer  # noqa: F401
-        except ImportError:
-            pass
+        from incubator_brpc_tpu_torch.client import naming_service  # noqa: F401
+        from incubator_brpc_tpu_torch.client import naming_remote  # noqa: F401
+        from incubator_brpc_tpu_torch.client import load_balancer  # noqa: F401
         from incubator_brpc_tpu_torch.metrics.default_variables import (
             expose_default_variables,
         )

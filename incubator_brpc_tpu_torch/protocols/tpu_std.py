@@ -235,7 +235,7 @@ def process_request(msg: TpuStdMessage, sock) -> None:
         return send_response(ctrl, None)
     # rpc_dump sampling gate (reference baidu_rpc_protocol.cpp:329-339)
     if server._rpc_dump_ctx is not None:
-        server._rpc_dump_ctx.sample_request(req_meta, msg.payload)
+        server._rpc_dump_ctx.sample_request(req_meta, msg.payload, meta.attachment_size)
     method = server.find_method(req_meta.service_name, req_meta.method_name)
     if method is None:
         has_service = server.has_service(req_meta.service_name)

@@ -6,10 +6,11 @@ per-method status/limiters, listens and starts the Acceptor, and
 exposes the server on the ICI fabric (``start_ici``) over a torch
 device.  One port speaks every registered protocol.
 
-Micro-batching (``enable_batching``, ``batching/``) is carried over.
+Micro-batching (``enable_batching``, ``batching/``), the builtin
+observability pages (``builtin/``, on the same port or behind
+``internal_port``), rpc_dump sampling and trackme are carried over.
 Not carried over yet, each raising NotImplementedError when asked for:
-the native C++ engine and TLS (ROADMAP.md queue 1 item 12), the
-builtin observability pages (item 10) and rpc_dump sampling (item 12).
+TLS (ROADMAP.md queue 1 item 12) and the native C++ engine (item 22).
 """
 
 from __future__ import annotations
@@ -29,6 +30,24 @@ from incubator_brpc_tpu_torch.transport.acceptor import Acceptor
 from incubator_brpc_tpu_torch.unported import unported
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.logging import log_error, log_info, log_warning
+
+
+class _InternalPortView:
+    """Server facade for the internal_port acceptor: serves ONLY the
+    builtin observability pages, never user pb services (reference
+    internal_port acceptor, server.cpp:1042-1080)."""
+
+    def __init__(self, server: "Server"):
+        self._server = server
+
+    def __getattr__(self, name):
+        return getattr(self._server, name)
+
+    def builtin_allowed(self) -> bool:
+        return True
+
+    def find_method(self, service_name: str, method_name: str):
+        return None  # pb services stay on the public port
 
 
 @dataclass
@@ -134,12 +153,25 @@ class Server:
         self._thread_local_store = threading.local()
         self._ici_port = None
         self._batchers: Dict[str, object] = {}  # full_name -> Batcher
+        self._builtin_handlers = {}
+        self._internal_acceptor: Optional[Acceptor] = None
+        self._internal_ep: Optional[EndPoint] = None
         from incubator_brpc_tpu_torch.server.admission import AdmissionController
 
         # every dispatch path sheds through this one decision point
         self.admission = AdmissionController(
             self, self.options.admission_policy
         )
+
+    def builtin_allowed(self) -> bool:
+        """When internal_port is set, builtin pages are denied on the
+        public port (they move behind the firewall-able internal one)."""
+        return self.options.internal_port is None or self.options.internal_port < 0
+
+    def harvest_native_stats(self) -> None:
+        """The builtin pages call this to fold the native engine's
+        fast-path completions into MethodStatus first.  The port has no
+        native engine (ROADMAP.md queue 1 item 22): nothing to fold."""
 
     # ---- registration (AddService, server.cpp:1230,1470) -------------------
     def add_service(self, service: Service) -> int:
@@ -319,7 +351,7 @@ class Server:
         not batched (no batcher, or it stopped) — the caller runs the
         existing dispatch path.  (The JAX package also defers rows of a
         native read burst into one submit_many; the native engine is
-        ROADMAP.md queue 1 item 12.)"""
+        ROADMAP.md queue 1 item 22.)"""
         batcher = self._batchers.get(method.full_name)
         if batcher is None:
             return False
@@ -347,16 +379,16 @@ class Server:
         # warm the runtime (bthread_setconcurrency, server.cpp:953-961)
         if self.options.num_threads:
             get_task_control()
-        if self.options.rpc_dump_dir:
-            unported("rpc_dump sampling", 12)
         if self.options.ssl_options is not None:
             unported("TLS (ssl_options)", 12)
         if self.options.native_engine:
-            unported("the native C++ engine (native_engine)", 12)
-        if self.options.internal_port is not None and self.options.internal_port >= 0:
-            unported("builtin pages (internal_port)", 10)
-        # builtin observability pages (has_builtin_services): none are
-        # registered until they are ported (ROADMAP.md queue 1 item 10)
+            unported("the native C++ engine (native_engine)", 22)
+        if self.options.has_builtin_services:
+            self._add_builtin_services()
+        if self.options.rpc_dump_dir:
+            from incubator_brpc_tpu_torch.observability.rpc_dump import RpcDumpContext
+
+            self._rpc_dump_ctx = RpcDumpContext(self.options.rpc_dump_dir)
         for status in self._method_status.values():
             status.expose()
         self._init_batchers()
@@ -380,9 +412,63 @@ class Server:
         self._running = True
         self._acceptor = Acceptor(self)
         self._acceptor.start_accept(fd)
+        if self.options.internal_port is not None and self.options.internal_port >= 0:
+            # UDS main listener: the internal port is TCP, serve loopback
+            host = ep.host if ep.scheme == "tcp" else "127.0.0.1"
+            rc = self._start_internal_port(host)
+            if rc != 0:
+                self.stop()
+                return rc
         log_info("Server started on %s", ep)
+        # trackme census pings (opt-in via -trackme_server flag;
+        # reference triggers on first RPC, trackme.cpp:36-39)
+        from incubator_brpc_tpu_torch.observability.trackme import start_trackme
+
+        start_trackme()
+        # SIGUSR1 → stack dump to stderr (tools/task_stacks CLI target;
+        # best-effort: only works from the main thread)
+        from incubator_brpc_tpu_torch.tools.task_stacks import install_sigusr1_handler
+
+        install_sigusr1_handler()
         self._maybe_install_graceful_quit()
         return 0
+
+    def _start_internal_port(self, host: str) -> int:
+        """Second acceptor for builtin services only (server.cpp:1042)."""
+        try:
+            fd = _pysocket.socket(_pysocket.AF_INET, _pysocket.SOCK_STREAM)
+            fd.setsockopt(_pysocket.SOL_SOCKET, _pysocket.SO_REUSEADDR, 1)
+            fd.bind((host, self.options.internal_port))
+            fd.listen(128)
+            fd.setblocking(False)
+        except OSError as e:
+            log_error("listen on internal_port %s failed: %r",
+                      self.options.internal_port, e)
+            return -1
+        self._internal_ep = EndPoint.tcp(host, fd.getsockname()[1])
+        self._internal_acceptor = Acceptor(_InternalPortView(self))
+        self._internal_acceptor.start_accept(fd)
+        log_info("builtin services on internal port %s", self._internal_ep)
+        return 0
+
+    def _add_builtin_services(self):
+        # no ImportError guard: a broken builtin/ must fail the start
+        from incubator_brpc_tpu_torch.builtin import register_builtin_services
+
+        register_builtin_services(self)
+
+    def add_builtin_handler(self, path: str, fn):
+        self._builtin_handlers[path.rstrip("/") or "/"] = fn
+
+    def find_builtin_handler(self, path: str):
+        h = self._builtin_handlers.get(path)
+        if h is not None:
+            return h
+        # prefix match for parameterized pages (/pprof/...)
+        for p, fn in self._builtin_handlers.items():
+            if p != "/" and path.startswith(p + "/"):
+                return fn
+        return None
 
     def _maybe_install_graceful_quit(self):
         """SIGTERM/SIGINT → graceful stop (reference
@@ -466,6 +552,8 @@ class Server:
             # docstring's contract), then drain
             if self._acceptor is not None:
                 self._acceptor.stop_listening()
+            if self._internal_acceptor is not None:
+                self._internal_acceptor.stop_listening()
             deadline = _time.monotonic() + closewait_ms / 1000.0
             clean_streak = 0
             while _time.monotonic() < deadline:
@@ -482,6 +570,9 @@ class Server:
         if self._acceptor is not None:
             self._acceptor.stop_accept()
             self._acceptor = None
+        if self._internal_acceptor is not None:
+            self._internal_acceptor.stop_accept()
+            self._internal_acceptor = None
         self._listen_fd = None
         return 0
 
@@ -524,6 +615,10 @@ class Server:
     @property
     def port(self) -> int:
         return self._listen_ep.port if self._listen_ep else 0
+
+    @property
+    def internal_port(self) -> int:
+        return self._internal_ep.port if self._internal_ep else -1
 
     def connection_count(self) -> int:
         return self._acceptor.connection_count() if self._acceptor else 0

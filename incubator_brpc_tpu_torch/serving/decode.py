@@ -36,8 +36,8 @@ built without a ``loop`` makes a ``DecodeLoop`` on ``device`` (default:
 the card of chip 0; raises without one).  A uint8 layer row pulled off
 the wire becomes the (dim,) float32 state by a bitcast view on the
 device (``Tensor.view(torch.float32)``), never crossing to the host.
-The SSE front (``AdmitSSE``) needs the http protocol (ROADMAP.md queue
-1 item 12) and raises naming it.
+The SSE front (``AdmitSSE``) writes ``data: <idx> <token>`` events on
+the http protocol's progressive attachment, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -56,7 +56,6 @@ from incubator_brpc_tpu_torch.server.service import Service, ServiceStub, rpc_me
 from incubator_brpc_tpu_torch.serving.session import kv_layer_keys
 from incubator_brpc_tpu_torch.streaming.generate import DecodeLoop
 from incubator_brpc_tpu_torch.streaming.stream import Stream, StreamHandler, StreamOptions
-from incubator_brpc_tpu_torch.unported import unported
 
 
 class AdmitError(RuntimeError):
@@ -402,10 +401,36 @@ class DecodeService(Service):
 
     @rpc_method(EchoRequest, EchoResponse)
     def AdmitSSE(self, controller, request, response, done):
-        """SSE front (``data: <idx> <token>`` per step on a chunked
-        text/event-stream response): not ported yet, it needs the http
-        protocol's progressive attachment."""
-        unported("DecodeService.AdmitSSE (the http protocol)", 12)
+        """SSE front: ``data: <idx> <token>`` per step on a chunked
+        text/event-stream response, ``data: [DONE]`` then close."""
+        try:
+            spec = self._parse_admit(request)
+        except (ValueError, KeyError, TypeError) as e:
+            controller.set_failed(errors.EREQUEST, f"bad admit request: {e}")
+            done()
+            return
+        self.sse_rows += 1
+        pa = controller.create_progressive_attachment(
+            content_type="text/event-stream"
+        )
+        backlog_cap = max(64, self.outbox_max_tokens) * 64
+
+        def emit(idx, tok, pa=pa):
+            if pa.backlog_bytes() > backlog_cap:
+                raise RuntimeError("sse client too slow: backlog over cap")
+            if pa.write(f"data: {idx} {tok}\n\n") != 0:
+                raise RuntimeError("sse client gone")
+
+        def finish(ok, pa=pa):
+            if ok:
+                pa.write("data: [DONE]\n\n")
+            pa.close()
+
+        try:
+            self.admit_session(emit=emit, on_finish=finish, **spec)
+        except AdmitError as e:
+            controller.set_failed(e.code, str(e))
+        done()
 
     @rpc_method(EchoRequest, EchoResponse)
     def Checkpoint(self, controller, request, response, done):

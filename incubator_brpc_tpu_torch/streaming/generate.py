@@ -52,8 +52,9 @@ Port of the JAX package's ``streaming/generate.py``.  Where it differs:
 - **Row states are views.**  ``row.state = out[i]`` keeps the step's
   (pad, dim) output alive until every row of the step has moved on;
   the cache store compacts such a view before it stores it.
-- **No SSE front yet.**  ``GenerateSSE`` needs the http protocol
-  (ROADMAP.md queue 1 item 12) and raises naming it.
+- **The SSE front.**  ``GenerateSSE`` streams the same host token
+  strings ``emit`` hands the stream path, as ``data:`` events on the
+  http protocol's progressive attachment.
 """
 
 from __future__ import annotations
@@ -78,7 +79,6 @@ from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
 from incubator_brpc_tpu_torch.runtime.execution_queue import ExecutionQueue
 from incubator_brpc_tpu_torch.server.service import Service, ServiceStub, rpc_method
 from incubator_brpc_tpu_torch.streaming.stream import Stream, StreamHandler, StreamOptions
-from incubator_brpc_tpu_torch.unported import unported
 from incubator_brpc_tpu_torch.utils.logging import log_error
 
 # Default decode-window contract: fuse up to 32 live rows per step,
@@ -575,9 +575,32 @@ class GenerateService(Service):
 
     @rpc_method(EchoRequest, EchoResponse)
     def GenerateSSE(self, controller, request, response, done):
-        """HTTP progressive path (Server-Sent Events): not ported yet,
-        it needs the http protocol's progressive attachment."""
-        unported("GenerateService.GenerateSSE (the http protocol)", 12)
+        """HTTP progressive path: Server-Sent Events on a chunked
+        text/event-stream response — ``data: <token>`` per step,
+        ``data: [DONE]`` then close at the end."""
+        self.sse_rows += 1
+        pa = controller.create_progressive_attachment(
+            content_type="text/event-stream"
+        )
+        # slow-consumer bound, mirroring the stream path's outbox
+        # eviction: past this many unsent bytes on the connection the
+        # row is evicted instead of growing the socket queue forever
+        backlog_cap = max(64, self.outbox_max_tokens) * 64
+
+        def emit(tok, row, pa=pa):
+            if pa.backlog_bytes() > backlog_cap:
+                row.cancel("sse client too slow: backlog over cap")
+                return
+            if pa.write(f"data: {tok}\n\n") != 0:
+                row.cancel("sse client gone")
+
+        def finish(row, ok, pa=pa):
+            if ok:
+                pa.write("data: [DONE]\n\n")
+            pa.close()
+
+        self.loop.admit(request.message, self._tokens_for(request), emit, finish)
+        done()
 
 
 def generate_stub(channel) -> ServiceStub:

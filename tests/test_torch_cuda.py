@@ -339,3 +339,56 @@ def test_sharded_scatter_and_fanout_forward_on_the_card(cuda_device):
     ref = x.astype(np.float64) @ w64
     scale = np.abs(x).astype(np.float64) @ np.abs(w64)
     assert np.all(np.abs(y - ref) <= 2e-6 * scale)
+
+
+def test_device_capture_trace_names_k1(cuda_device):
+    """/hotspots/device?seconds=N while echoes run on the card: no
+    trace_error, the exported torch.profiler trace names K1 with its
+    CUDA time, and the page prints the profiler's kernel rows beside the
+    dispatch counters."""
+    import json
+    import pathlib
+    import threading
+
+    from incubator_brpc_tpu_torch import Channel, ChannelOptions, Controller, Server
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.observability import profiling
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.tools.rpc_view import fetch_page
+
+    srv = Server()
+    srv.add_service(EchoService())
+    assert srv.start(0) == 0 and srv.start_ici(12, 60) == 0
+    stop = threading.Event()
+    try:
+        ch = Channel(ChannelOptions(timeout_ms=30000, ici_device=cuda_device))
+        assert ch.init("ici://slice12/chip60") == 0
+        x = torch.randn((2048, 1024), device=cuda_device)
+
+        def load():
+            while not stop.is_set():
+                c = Controller()
+                c.request_attachment.append_device(x)
+                echo_stub(ch).Echo(c, EchoRequest(message="capture"))
+                assert not c.failed(), c.error_text()
+
+        profiling.device_capture(0.05)  # the profiler's first start
+        t = threading.Thread(target=load)
+        t.start()
+        try:
+            text = fetch_page(f"127.0.0.1:{srv.port}", "hotspots/device?seconds=0.5")
+        finally:
+            stop.set()
+            t.join(30)
+        assert "trace: unavailable" not in text, text
+        assert "copy_csum_blocks_kernel" in text  # the profiler's kernel rows
+        trace_dir = next(ln.split(": ", 1)[1] for ln in text.splitlines()
+                         if ln.startswith("trace_dir: "))
+        events = json.loads((pathlib.Path(trace_dir) / profiling.TRACE_FILE).read_text())
+        k1 = [e for e in events["traceEvents"]
+              if e.get("cat") == "kernel" and "copy_csum_blocks_kernel" in e["name"]]
+        assert k1 and all(float(e["dur"]) > 0 for e in k1)
+        assert not profiling.capture_active()
+    finally:
+        stop.set()
+        srv.stop()

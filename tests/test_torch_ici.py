@@ -362,20 +362,23 @@ def test_start_ici_without_cuda_needs_a_device(monkeypatch):
     assert not srv.is_running()
 
 
-def test_unported_branches_raise_not_implemented():
+def test_unported_branches_raise_not_implemented(tmp_path):
     # cluster channels are ported: a naming URL with a balancer inits
     ch = Channel()
     assert ch.init("list://127.0.0.1:1,127.0.0.1:2", "rr") == 0
     ch.close()
-    # the native submission ring, Channel TLS and the native engine are not
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+    # the native submission ring and the native engine are item 22,
+    # Channel TLS item 12
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 22"):
         ch.call_many(None, [])
+    with pytest.raises(NotImplementedError, match="item 22"):
+        ch.submission_ring()
     with pytest.raises(NotImplementedError, match="item 12"):
         Channel(ChannelOptions(ssl_options=object())).init("127.0.0.1:1")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 22"):
         Channel(ChannelOptions(connection_type="native")).init("127.0.0.1:1")
     # the combo channels are ported and exported as the JAX package
-    # exports them; the authenticator is not
+    # exports them; the authenticator is item 20
     import incubator_brpc_tpu_torch as port
     from incubator_brpc_tpu_torch.client import combo
 
@@ -383,14 +386,20 @@ def test_unported_branches_raise_not_implemented():
     assert port.SelectiveChannel is combo.SelectiveChannel
     assert port.PartitionChannel is combo.PartitionChannel
     for name in ("Authenticator", "AuthContext"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 20"):
             getattr(port, name)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 22"):
         Server(ServerOptions(native_engine=True)).start(0)
-    srv = Server(ServerOptions(rpc_dump_dir="rpc_dump"))
     with pytest.raises(NotImplementedError, match="item 12"):
-        srv.start(0)
-    assert not srv.is_running()
+        Server(ServerOptions(ssl_options=object())).start(0)
+    # rpc_dump sampling and internal_port are ported: both start
+    srv = Server(ServerOptions(rpc_dump_dir=str(tmp_path / "dump"), internal_port=0))
+    srv.add_service(EchoService())
+    try:
+        assert srv.start(0) == 0 and srv.is_running()
+        assert srv._rpc_dump_ctx is not None and srv.internal_port > 0
+    finally:
+        srv.stop()
 
 
 def test_hbm_ledger_and_census_on_cpu(fabric, echo_server):
@@ -416,7 +425,7 @@ def test_hbm_ledger_and_census_on_cpu(fabric, echo_server):
 # ---- the port stands alone ----------------------------------------------------
 
 _GUARD = """
-import sys, torch
+import sys, time, torch
 import incubator_brpc_tpu_torch
 from incubator_brpc_tpu_torch import Channel, ChannelOptions, Controller, Server
 from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
@@ -501,6 +510,33 @@ dyn = DynamicShardChannel(sharded_ps_channel(endpoints=eps[:1], channel_options=
 rep = replicated_ps_channel([[e] for e in eps], register=False, channel_options=opts)
 assert rep.rf1 and murmur3_32(b"guard") == 2201486462
 for srv in servers: srv.stop()
+# the HTTP front: builtin pages, SSE, rpc_dump, trackme, the profiler
+import json, tempfile, urllib.request
+from incubator_brpc_tpu_torch.observability import profiling, trackme
+from incubator_brpc_tpu_torch.streaming.generate import GenerateService, generate_stub
+from incubator_brpc_tpu_torch.tools.rpc_replay import replay
+import incubator_brpc_tpu_torch.client.naming_remote, incubator_brpc_tpu_torch.serialization
+gen = GenerateService(DecodeLoop(dim=8, device=cpu))
+srv = Server(ServerOptions(rpc_dump_dir=tempfile.mkdtemp()))
+srv.add_service(gen); srv.add_service(EchoService())
+assert srv.start(0) == 0
+srv._rpc_dump_ctx.sample_ratio = 1.0
+for page in ("status", "vars", "metrics", "hotspots/hbm", "hotspots/runtime",
+             "hotspots/device?seconds=0.01", "cache", "serving", "replication", "resharding"):
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/{page}", timeout=30) as r:
+        assert r.status == 200, page
+ch = Channel(ChannelOptions(protocol="http", timeout_ms=30000))
+assert ch.init(f"127.0.0.1:{srv.port}") == 0
+c = Controller(); c.response_will_be_read_progressively()
+generate_stub(ch).GenerateSSE(c, EchoRequest(message="guard", code=3))
+parts = []; c.read_progressive_attachment(lambda p: parts.append(p))
+while not parts or parts[-1] is not None: time.sleep(0.01)
+assert b"".join(parts[:-1]).count(b"data: ") == 4
+tcp = Channel(ChannelOptions(timeout_ms=30000)); assert tcp.init(f"127.0.0.1:{srv.port}") == 0
+c = Controller(); echo_stub(tcp).Echo(c, EchoRequest(message="dumped")); assert not c.failed()
+assert replay(f"127.0.0.1:{srv.port}", srv._rpc_dump_ctx.dump_dir, report=lambda *_: None) >= 1
+assert trackme.pinger().ping_now() is None
+ch.close(); tcp.close(); srv.stop(); gen.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))

@@ -41,6 +41,7 @@ from incubator_brpc_tpu.serving.decode import DecodeService as JDecodeService
 from incubator_brpc_tpu.serving.prefill import PrefillService as JPrefill
 from incubator_brpc_tpu.serving.router import SessionChannel as JSessionChannel
 from incubator_brpc_tpu.streaming.generate import DecodeLoop as JLoop
+from incubator_brpc_tpu.streaming.generate import GenerateService as JGenerateService
 from incubator_brpc_tpu_torch import convert
 from incubator_brpc_tpu_torch import errors
 from incubator_brpc_tpu_torch.cache.store import HBMCacheStore
@@ -506,6 +507,207 @@ def test_client_cancel_mid_stream_frees_slot(gen_server):
 
 
 # ---------------------------------------------------------------------------
+# the SSE fronts over HTTP (tests/test_streaming_generate.py:281-343,
+# tests/test_serving.py:720-740), held to the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def read_sse(stub_method, request):
+    """One SSE call read progressively: (data events, arrival times)."""
+    c = Controller()
+    c.response_will_be_read_progressively()
+    stub_method(c, request)
+    assert not c.failed(), c.error_text()
+    parts, stamps, end = [], [], threading.Event()
+
+    def reader(part):
+        if part is None:
+            end.set()
+        else:
+            parts.append(part)
+            stamps.append(time.monotonic())
+
+    assert c.read_progressive_attachment(reader) == 0
+    assert end.wait(20), "SSE stream never finished"
+    body = b"".join(parts).decode()
+    return [ln[6:] for ln in body.split("\n") if ln.startswith("data: ")], stamps
+
+
+def jax_sse(make_service, method, request_kw):
+    """The JAX package's SSE tokens: its own server, its http channel."""
+    from incubator_brpc_tpu.client.channel import Channel as JChannel
+    from incubator_brpc_tpu.client.channel import ChannelOptions as JOptions
+    from incubator_brpc_tpu.client.controller import Controller as JController
+    from incubator_brpc_tpu.protos.echo_pb2 import EchoRequest as JEchoRequest
+    from incubator_brpc_tpu.server.server import Server as JServer
+    from incubator_brpc_tpu.server.service import ServiceStub as JStub
+
+    svc = make_service()
+    srv = JServer()
+    srv.add_service(svc)
+    assert srv.start(0) == 0
+    ch = JChannel(JOptions(protocol="http", timeout_ms=20000))
+    assert ch.init(f"127.0.0.1:{srv.port}") == 0
+    try:
+        c = JController()
+        c.response_will_be_read_progressively()
+        getattr(JStub(ch, type(svc)), method)(c, JEchoRequest(**request_kw))
+        assert not c.failed(), c.error_text()
+        parts, end = [], threading.Event()
+        c.read_progressive_attachment(lambda p: end.set() if p is None else parts.append(p))
+        assert end.wait(20)
+        body = b"".join(parts).decode()
+        return [ln[6:] for ln in body.split("\n") if ln.startswith("data: ")]
+    finally:
+        ch.close()
+        srv.stop()
+        svc.close()
+
+
+@pytest.mark.parametrize("prompt,n", [("sse", 6), ("wire", 3), ("mate", 60)])
+def test_generate_sse_tokens_match_jax(prompt, n, closer):
+    """GenerateSSE over Channel(protocol="http"): progressive arrivals,
+    ``[DONE]`` last, and the tokens of the JAX package's GenerateSSE
+    under assert_tokens_match's rule."""
+    gen = GenerateService(loop=DecodeLoop(dim=8, step_delay_s=0.005, device=CPU))
+    closer(gen)
+    steps = trace_steps(gen.loop)
+    srv = Server()
+    srv.add_service(gen)
+    assert srv.start(0) == 0
+    ch = Channel(ChannelOptions(protocol="http", timeout_ms=20000))
+    assert ch.init(f"127.0.0.1:{srv.port}") == 0
+    try:
+        events, stamps = read_sse(generate_stub(ch).GenerateSSE,
+                                  EchoRequest(message=prompt, code=n))
+    finally:
+        ch.close()
+        srv.stop()
+    assert events[-1] == "[DONE]" and len(events) == n + 1
+    assert stamps[-1] - stamps[0] > 0.005  # progressive, not one buffered blob
+    assert gen.sse_rows == 1 and gen.streamed_rows == gen.unary_rows == 0
+    jt = jax_sse(lambda: JGenerateService(loop=JLoop(dim=8)), "GenerateSSE",
+                 {"message": prompt, "code": n})
+    assert jt[-1] == "[DONE]"
+    jloop = JLoop(dim=8)
+    closer(jloop)
+    assert_tokens_match(events[:-1], row_trace(steps, seed_state(prompt, 8), n), jloop,
+                        jt[:-1], JAX_RUN_DIFFERS.get((8, prompt), ()))
+
+
+def test_generate_sse_wire_content_type(closer):
+    gen = GenerateService(loop=DecodeLoop(dim=8, device=CPU))
+    closer(gen)
+    srv = Server()
+    srv.add_service(gen)
+    assert srv.start(0) == 0
+    try:
+        import socket as pysock
+
+        body = b'{"message":"wire","code":3}'
+        s = pysock.create_connection(("127.0.0.1", srv.port), timeout=5)
+        s.sendall(b"POST /GenerateService/GenerateSSE HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        s.settimeout(10)
+        data = b""
+        while b"0\r\n\r\n" not in data:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            data += chunk
+        s.close()
+    finally:
+        srv.stop()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    assert b"200" in head.split(b"\r\n")[0]
+    assert b"text/event-stream" in head.lower()
+    assert b"transfer-encoding: chunked" in head.lower()
+    assert rest.count(b"data: ") == 4  # 3 tokens + [DONE]
+
+
+class _FakeAttachment:
+    """A progressive attachment whose unsent backlog the test sets."""
+
+    def __init__(self, backlog):
+        self.backlog, self.parts, self.closed = backlog, [], threading.Event()
+
+    def backlog_bytes(self):
+        return self.backlog
+
+    def write(self, part):
+        self.parts.append(part)
+        return 0
+
+    def close(self):
+        self.closed.set()
+
+
+def test_sse_backlog_cap_cancels_only_the_slow_row(closer):
+    """A reader past the backlog cap (max(64, outbox_max_tokens) x 64
+    bytes) loses its row at the next step, without [DONE]; the row that
+    shares its steps runs to the end, and its events carry the host
+    token strings the loop emits."""
+    gen = GenerateService(loop=DecodeLoop(dim=8, step_delay_s=0.002, device=CPU),
+                          outbox_max_tokens=64)
+    closer(gen)
+    steps = trace_steps(gen.loop)
+    slow, fast = _FakeAttachment(64 * 64 + 1), _FakeAttachment(64 * 64)
+    with gen.loop._cv:  # both rows join the first step's window
+        for pa, prompt in ((slow, "slow reader"), (fast, "fast reader")):
+            c = Controller()
+            c.create_progressive_attachment = lambda content_type=None, pa=pa: pa
+            gen.GenerateSSE(c, EchoRequest(message=prompt, code=20), None, lambda: None)
+    assert slow.closed.wait(10) and fast.closed.wait(10)
+    assert slow.parts == [] and gen.loop.rows_cancelled >= 1
+    assert fast.parts[-1] == "data: [DONE]\n\n" and len(fast.parts) == 21
+    jloop = JLoop(dim=8)
+    closer(jloop)
+    assert_tokens_match([p[6:-2] for p in fast.parts[:-1]],
+                        row_trace(steps, seed_state("fast reader", 8), 20), jloop)
+
+
+def test_admit_sse_tokens_match_jax(closer):
+    """AdmitSSE behind a prefilled session: ``<idx> <token>`` events in
+    order, ``[DONE]`` last, prefill run once, and the tokens of the JAX
+    package's AdmitSSE on the same session under assert_tokens_match's
+    rule (layer 0 of the KV stack is the prompt's seed state)."""
+    n, prompt = 5, "sse prompt"
+    req = {"session": "sse-s", "kv_epoch": 0, "n_layers": 2, "max_tokens": n}
+    store = HBMCacheStore(hbm_budget_bytes=1 << 24, device=CPU)
+    pf = PrefillService(store, dim=DIM, n_layers=2, device=CPU)
+    pf.prefill_sessions([("sse-s", prompt)])
+    dec = DecodeService(store, DecodeLoop(dim=DIM, device=CPU), name="sse-d0")
+    closer(dec)
+    steps = trace_steps(dec.loop)
+    srv = Server()
+    srv.add_service(dec)
+    assert srv.start(0) == 0
+    ch = Channel(ChannelOptions(protocol="http", timeout_ms=20000))
+    assert ch.init(f"127.0.0.1:{srv.port}") == 0
+    try:
+        events, _ = read_sse(decode_stub(ch).AdmitSSE, EchoRequest(message=json.dumps(req)))
+    finally:
+        ch.close()
+        srv.stop()
+    assert events[-1] == "[DONE]" and len(events) == n + 1
+    assert [e.split()[0] for e in events[:-1]] == [str(i) for i in range(n)]
+    assert pf.prefill_executions["sse-s"] == 1 and dec.sse_rows == 1
+
+    def jax_decode():
+        jstore = JStore(hbm_budget_bytes=1 << 24)
+        JPrefill(jstore, dim=DIM, n_layers=2).prefill_sessions([("sse-s", prompt)])
+        return JDecodeService(jstore, JLoop(dim=DIM), name="sse-d0")
+
+    jt = jax_sse(jax_decode, "AdmitSSE", {"message": json.dumps(req)})
+    assert jt[-1] == "[DONE]" and [e.split()[0] for e in jt[:-1]] == [str(i) for i in range(n)]
+    jloop = JLoop(dim=DIM)
+    closer(jloop)
+    assert_tokens_match([e.split()[1] for e in events[:-1]],
+                        row_trace(steps, seed_state(prompt, DIM), n), jloop,
+                        [e.split()[1] for e in jt[:-1]])
+
+
+# ---------------------------------------------------------------------------
 # disaggregated serving (tests/test_serving.py)
 # ---------------------------------------------------------------------------
 
@@ -780,15 +982,27 @@ def test_uint8_kv_row_bitcasts_on_the_device():
 
 
 def test_unported_fronts_raise_naming_their_item(closer):
+    """The SSE fronts are ported: called directly, each switches its
+    response to a text/event-stream progressive attachment (a bad admit
+    request fails EREQUEST first).  The sharded prefill still raises
+    naming its item."""
     gen = GenerateService(loop=DecodeLoop(dim=8, device=CPU))
     closer(gen)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gen.GenerateSSE(Controller(), EchoRequest(message="x"), None, lambda: None)
+    c, done = Controller(), threading.Event()
+    gen.GenerateSSE(c, EchoRequest(message="x", code=2), None, done.set)
+    assert done.is_set() and not c.failed() and gen.sse_rows == 1
+    assert c._progressive_attachment.content_type == "text/event-stream"
     store = HBMCacheStore(1 << 20, device=CPU)
     dec = DecodeService(store, name="u", dim=8, device=CPU)
     closer(dec)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dec.AdmitSSE(Controller(), EchoRequest(message="{}"), None, lambda: None)
+    c, done = Controller(), threading.Event()
+    dec.AdmitSSE(c, EchoRequest(message="{}"), None, done.set)
+    assert done.is_set() and c.error_code == errors.EREQUEST and dec.sse_rows == 0
+    c, done = Controller(), threading.Event()
+    dec.AdmitSSE(c, EchoRequest(message=json.dumps(
+        {"session": "absent", "kv_epoch": 0, "n_layers": 2, "max_tokens": 2})), None, done.set)
+    assert done.is_set() and c.failed() and dec.sse_rows == 1
+    assert c._progressive_attachment.content_type == "text/event-stream"
     with pytest.raises(NotImplementedError, match="item 5"):
         PrefillService(store, dim=8, mesh=object(), device=CPU)
 
