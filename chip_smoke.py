@@ -130,20 +130,45 @@ file.  Phases, each fatal on failure:
              internal_port only; rpc_dump of PS Forward calls (device x
              over ici://, one host-view pull per sample) replayed by
              rpc_replay to a fresh server, each y held to float64;
-11. times  — each kernel's time at the main path's shapes beside its
-             bound, its plain version and x.clone(), K1 on the PS path's
-             W and on one 8 MB chunk with a carry (the pipelined mode's
-             launch, walked over a 64 MB frame so that the L2 is cold,
-             as on the path), and on a 1 MiB cache value and the 32 MiB
-             DMGET stack; the Forward product and the decode step
-             (torch.matmul, XLA ops in the reference) per bucket.
+11. mesh   — the single-controller mesh (parallel/mesh.py) of 4 virtual
+             chips on the card: each collective lowering over a (4 *
+             2048, 2048) f32 tensor held to a plain version (gather,
+             all_to_all, the ppermute ring and the hedged pick
+             byte-equal, the psum bit-equal to the chip-order sum) with
+             its CUDA time; PsService(mesh=) at d = 6144 on
+             Server(enable_batching=True).start_ici: W Put and Got over
+             ici:// (one K1 a hop, 4 row shards, the assembled W
+             byte-equal), Forward closed loop at p = 1 off and p = 32 on
+             beside the unsharded ps points (every y held to float64,
+             executions == merges == batches), 16 Forwards of a device x
+             (one K1 a hop), a chaos merge reset failing only its
+             key-group, a live remesh to 2 chips under p = 8 load (no
+             Forward fails, 1 re-placed) and the servable-dim ceiling by
+             placement; PrefillService(mesh=) at d = 6144 with the serve
+             phase's layers and prompts (every layer held to float64,
+             prefill once a session); make_training_step on a (2, 2)
+             mesh at dim 6144, batch 256, 5 steps (the loss falls at
+             every step, step 1 held to a float64 plain step, the median
+             step time);
+12. times  — each kernel's time at the main path's shapes beside its
+             bound, its plain version and x.clone(): the whole-frame
+             transmits and copy_blocks walked over distinct buffers (each
+             frame cold in the 50 MB L2, as on the path) and run back to
+             back behind a sleep kernel, so each pays for the write-back
+             of its predecessor's output (the profiler's kernel span
+             between host-spaced launches, which leaves part of that
+             write-back to the idle gap, is kept as "span"), K1 on the PS path's W and on
+             one 8 MB chunk with a carry (the pipelined mode's launch,
+             walked over a 64 MB frame), and on a 1 MiB cache value and
+             the 32 MiB DMGET stack; the Forward product and the decode
+             step (torch.matmul, XLA ops in the reference) per bucket.
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 11 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 12 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -172,6 +197,9 @@ SEED = 1234
 RUN_DEADLINE_S = 1150  # the whole run's budget, inside its 1200 s limit
 MAIN_SHAPE = (8192, 2048)  # 64 MB of float32: bench.py's bench_ici_rpc payload
 CHUNK_ROWS = 1024  # one 8 MB chunk of MAIN_SHAPE: the pipelined mode's K1 launch
+COLD_PAIRS = 3  # [times]: launches walk over this many (source, destination) pairs
+SLEEP_CYCLES = 20_000_000  # [times]: about 10 ms of card sleep, the calls queue behind it
+SLEEP_TRIES = 5  # ... doubled after each window the host did not fill in time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PS_DIM = 6144  # bench.py:2044, bench_batched_device_op's dim
@@ -230,6 +258,14 @@ HTTP_ECHOES = 4
 HTTP_CACHE = 64 << 20
 HTTP_CAPTURE_S = 2
 HTTP_DUMPS = 16
+# the mesh phase: virtual chips on the one card (parallel/mesh.py)
+MESH_SLICE = 9  # ici://slice9/chip0: the in-mesh sharded PS
+MESH_CHIPS = 4
+MESH_BLOCK = (2048, 2048)  # each chip's block of the collectives' (4 * 2048, 2048) f32
+MESH_DEVICE_X = 16  # Forwards whose x rides ici:// as a device tensor
+MESH_CHIP_BUDGET = 64 << 20  # the servable-dim check's synthetic budget a chip
+MESH_BATCH = 256
+MESH_STEPS = 5
 # every page JAX register_builtin_services registers, with the status
 # the JAX package answers to a GET of it on a fresh server
 # (tests/test_torch_builtin.py holds both packages to this list)
@@ -3124,6 +3160,452 @@ def phase_http(torch, T):
     return counts, kernels_seen
 
 
+def same_bytes(torch, a, b) -> bool:
+    """a and b hold the same bytes (shape and dtype equal)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def mesh_collectives(torch, dev):
+    """Each lowering of parallel/collectives.py on a (1, MESH_CHIPS)
+    mesh of virtual chips on ``dev`` over a (MESH_CHIPS * 2048, 2048)
+    f32 tensor, held to a plain version written here: gather,
+    all_to_all, the ppermute ring and the hedged pick byte-equal, the
+    psum bit-equal to the chip-order sum.  Prints each one's CUDA time
+    (the profiler's kernel spans) and its time a call back to back
+    (``queued_ms``) beside its HBM bound."""
+    from incubator_brpc_tpu_torch.parallel import collectives as C
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    n = MESH_CHIPS
+    mesh = create_mesh((1, n), devices=[dev] * n)
+    rows, cols = MESH_BLOCK
+    x = make_payload(torch, (n * rows, cols), torch.float32, SEED)
+    blocks = list(x.split(rows))
+    xs = C.shard_tensor(x, mesh, C.P("chip"))
+    xs2 = C.shard_tensor(x, mesh, C.P("chip", None))
+    flags = torch.tensor([0.0, 0.0, 1.0, 1.0] + [1.0] * (n - 4), device=dev)
+    vs = C.shard_tensor(flags, mesh, C.P("chip"))
+    block_b = rows * cols * 4
+
+    psum_plain = blocks[0].clone()
+    for b in blocks[1:]:
+        psum_plain += b
+    cn = cols // n
+    a2a_plain = [torch.cat([b[:, i * cn:(i + 1) * cn] for b in blocks]) for i in range(n)]
+    ring_plain = []
+    for k in range(n):
+        acc = blocks[k]
+        for hop in range(1, n):
+            acc = acc + blocks[(k - hop) % n]
+        ring_plain.append(acc)
+    hedged_plain = torch.zeros_like(blocks[0])
+    for k in range(n):
+        hedged_plain += blocks[k] if k == 2 else torch.zeros_like(blocks[k])
+    cases = [
+        # name, lowering, its input, plain per chip, bytes the function moves
+        ("psum", lambda: C.parallel_merge(mesh, "chip", "sum")(xs), [psum_plain] * n,
+         n * block_b + block_b),
+        ("all_gather", lambda: C.parallel_broadcast_gather(mesh, "chip")(xs), [x] * n,
+         2 * n * block_b),
+        ("all_to_all", lambda: C.partition_reshard(mesh, "chip")(xs2), a2a_plain,
+         2 * n * block_b),
+        ("ppermute_ring", lambda: C.ring_stream(mesh, "chip")(xs), ring_plain,
+         2 * n * block_b),
+        # this run's flags pick chip 2: its block is read, the result written
+        ("hedged_first_valid", lambda: C.hedged_first_valid(mesh, "chip")(xs, vs),
+         [hedged_plain] * n, 2 * block_b + n * 4),
+    ]
+    out = {}
+    for name, fn, plain, nbytes in cases:
+        got = fn()
+        torch.cuda.synchronize(dev)
+        check(len(got.shards) == n, f"{name}: {len(got.shards)} shards for {n} chips")
+        for k, (g, p) in enumerate(zip(got.shards, plain)):
+            check(same_bytes(torch, g, p), f"{name}: chip {k}'s result differs from the plain "
+                                           f"version's bytes")
+        cuda = device_ms(torch, fn, iters=10)
+        ms = queued_ms(torch, fn, iters=10)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "cuda_ms": cuda, "bound_ms": bound}
+        print(f"[mesh] {name:18} on a (1, {n}) mesh of {dev}, ({n * rows}, {cols}) f32: "
+              f"{cuda:.4f} ms of CUDA time in the profiler, {ms:.4f} ms a call back to back "
+              f"(bound {bound:.4f} ms by bytes); each chip's result "
+              f"byte-equal to the plain version" + (" (the chip-order sum)" if name == "psum"
+                                                    else ""))
+    return out
+
+
+def mesh_ps(torch, T, dev, ps_summary):
+    """The in-mesh sharded PS at d = 6144 on a (1, MESH_CHIPS) mesh of
+    virtual chips: W Put and Got over ici:// (one K1 a hop), stored as
+    MESH_CHIPS row shards; Forward closed loop beside the unsharded
+    [ps] points, one execution and one merge per batch; device x over
+    ici:// (one K1 a hop); a chaos merge reset failing only its group;
+    a live remesh to 2 chips under load; the servable-dim ceiling."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch import errors
+    from incubator_brpc_tpu_torch.chaos import injector
+    from incubator_brpc_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import (
+        PS_BATCH_POLICY,
+        PsService,
+        max_servable_dim,
+        ps_stub,
+    )
+    from incubator_brpc_tpu_torch.parallel.collectives import ShardedTensor
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    d, n = PS_DIM, MESH_CHIPS
+    rows = d // n
+    mesh = create_mesh((1, n), devices=[dev] * n)
+    svc = PsService(mesh=mesh)
+    kern = svc.shard_kernel
+    check(svc._device == dev and kern is not None and kern.n_shards() == n,
+          f"PsService(mesh=) on {svc._device} with {kern and kern.n_shards()} shards")
+    srv = Server(ServerOptions(enable_batching=True))
+    srv.add_service(svc)
+    check(srv.start_ici(MESH_SLICE, 0) == 0, "start_ici of the mesh server failed")
+    srv.disable_method_batching("PsService.Put")
+    srv.disable_method_batching("PsService.Get")
+    ep = f"ici://slice{MESH_SLICE}/chip0"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+    w_csum = T.device_copy_with_checksum(W)[1]  # outside the count
+    req = EchoRequest(message="w")
+    channels = []
+    summary = {}
+    try:
+        for _ in range(4):
+            ch = Channel(ChannelOptions(timeout_ms=60000, ici_device=dev))
+            check(ch.init(ep) == 0, "mesh channel init failed")
+            channels.append(ch)
+        stubs = [ps_stub(c) for c in channels]
+
+        # ---- Put / Get of W over ici:// ---------------------------------
+        T.reset_launch_counts()  # the mesh path's run starts here
+        c = Controller()
+        c.request_attachment.append_device(W)
+        t0 = time.perf_counter()
+        stubs[0].Put(c, req)
+        torch.cuda.synchronize(dev)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        check(not c.failed(), f"mesh Put failed: {c.error_text()}")
+        stored = svc._store["w"]
+        check(isinstance(stored, ShardedTensor) and "w" in svc._sharded_keys,
+              "the mesh Put did not shard W")
+        check([tuple(s.shape) for s in stored.shards] == [(rows, d)] * n,
+              f"W stored as {[tuple(s.shape) for s in stored.shards]}, not {n} x ({rows}, {d})")
+        for k, shard in enumerate(stored.shards):
+            check(shard.device == dev and shard.is_contiguous()
+                  and shard.untyped_storage().nbytes() == rows * d * 4
+                  and same_bytes(torch, shard, W[k * rows:(k + 1) * rows]),
+                  f"chip {k}'s shard is not a copy of its own of W's rows")
+        c = Controller()
+        t0 = time.perf_counter()
+        stubs[0].Get(c, req)
+        torch.cuda.synchronize(dev)
+        get_ms = (time.perf_counter() - t0) * 1e3
+        check(not c.failed(), f"mesh Get failed: {c.error_text()}")
+        segs = c.response_attachment.device_segments()
+        check(len(segs) == 1 and same_bytes(torch, segs[0].array, W),
+              "the mesh Get did not return W's bytes")
+        check(segs[0].csum is not None and torch.equal(segs[0].csum, w_csum),
+              "the mesh Get's frame checksum differs from K1's whole-frame checksum")
+        del segs, c
+        hop_counts = dict(T.launches)
+        check(hop_counts["copy_csum_blocks"] == 2 and hop_counts["copy_csum_staged"] == 0,
+              f"mesh Put + Get launched {hop_counts}: expected one K1 per hop of W")
+        print(f"[mesh] PsService(mesh=create_mesh((1, {n}), devices=[{dev}] * {n})) at {ep}: "
+              f"Put of W ({d}, {d}) f32 over ici:// {put_ms:.3f} ms, stored as {n} row shards "
+              f"({rows}, {d}) each a copy on {dev}; Get {get_ms:.3f} ms, the assembled W "
+              f"byte-equal with K1's checksum; K1 1 per hop")
+
+        # ---- Forward, closed loop ---------------------------------------
+        xs = np.random.RandomState(SEED).randn(64, d).astype(np.float32)
+        x_bytes = [x.tobytes() for x in xs]
+        x_dev = torch.from_numpy(xs).to(dev).double()
+        ref = x_dev @ W.double()
+        scale = x_dev.abs() @ W.abs().double()
+
+        def verify(ys, what):
+            idx = torch.tensor([i for i, _ in ys], device=dev)
+            got = torch.from_numpy(
+                np.frombuffer(bytearray(b"".join(y for _, y in ys)), np.float32)
+                .reshape(len(ys), d)).to(dev)
+            bad, worst = past_f64(got, ref[idx], scale[idx])
+            check(bad == 0, f"{what}: {bad} Forward outputs off by up to {worst:.3g} of |x| @ |W|")
+            return worst
+
+        for b in PS_BATCH_POLICY.padding_buckets:  # cuBLAS set-up out of the windows
+            kern(stored, np.zeros((b, d), np.float32))
+        for par, cfg in ((1, "off"), (32, "on")):
+            if cfg == "off":
+                srv.disable_method_batching("PsService.Forward")
+            else:
+                srv.enable_method_batching("PsService.Forward")
+            batcher = srv.batcher("PsService.Forward")
+            closed_loop(stubs, req, x_bytes, min(par, 4), 0.1)  # warm
+            b0 = batcher.batches if batcher else 0
+            e0, m0 = kern.executions, kern.collective_merges
+            lats, ys, wall, _ = closed_loop(stubs, req, x_bytes, par, 1.0)
+            worst = verify(ys, f"p{par} {cfg}")
+            batches = (batcher.batches - b0) if batcher else len(ys)
+            execs, merges = kern.executions - e0, kern.collective_merges - m0
+            check(execs == merges == batches, f"p{par} {cfg}: {execs} executions, {merges} "
+                                              f"merges for {batches} batches")
+            qps = len(lats) / wall
+            summary[(par, cfg)] = (qps, pct(lats, 0.5), pct(lats, 0.99))
+            uq, up50, up99 = ps_summary[(par, cfg)]
+            print(f"[mesh] sharded Forward p{par:2} batching {cfg:3}: {qps:9.1f} qps, p50 "
+                  f"{pct(lats, 0.5)} us, p99 {pct(lats, 0.99)} us over {len(lats)} calls "
+                  f"[unsharded ps: {uq:.1f} qps, p50 {up50} us, p99 {up99} us; "
+                  f"{qps / uq:.2f}x]; {batches} batches = {execs} executions = {merges} "
+                  f"merges; max |y - ref| / (|x| @ |W|) {worst:.3g}")
+        wall_us, busy_us, by_name = device_profile(
+            torch, lambda: closed_loop(stubs, req, x_bytes, 32, 0.3))
+        check(busy_us > 0, "the profiler saw no CUDA work in the sharded Forward window")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        summary["busy"] = 100 * busy_us / wall_us
+        print(f"[profile] mesh forward p32 on: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({summary['busy']:.1f}%); top "
+              + ", ".join(f"{name[:40]} {us:.0f} us" for name, us in top))
+
+        # ---- device x over ici://: one K1 on each request hop -----------
+        k1 = T.launches["copy_csum_blocks"]
+        ys = []
+        for i in range(MESH_DEVICE_X):
+            c = Controller()
+            c.request_attachment.append_device(torch.from_numpy(xs[i]).to(dev))
+            stubs[0].Forward(c, req)
+            check(not c.failed(), f"Forward of a device x failed: {c.error_text()}")
+            ys.append((i, c.response_attachment.to_bytes()))
+        verify(ys, "device x")
+        dx = T.launches["copy_csum_blocks"] - k1
+        check(dx == MESH_DEVICE_X, f"{MESH_DEVICE_X} Forwards of a device x launched {dx} K1")
+        print(f"[mesh] {MESH_DEVICE_X} Forwards with x a device tensor over ici://: K1 1 per "
+              f"request hop, every y within {PS_RTOL} of |x| @ |W|")
+
+        # ---- a chaos merge reset fails only its key-group ----------------
+        svc.put_param("odd", torch.randn((d - 2, 8), generator=g, device=dev))
+        check("odd" not in svc._sharded_keys, "a (6142, 8) W must not shard over 4 chips")
+
+        def batch(keys_xs):
+            ctrls = []
+            for key, x in keys_xs:
+                c = Controller()
+                c.request_attachment.append_user_data(x.tobytes())
+                ctrls.append(c)
+            PsService.Forward.__batch_fn__(
+                svc, ctrls, [EchoRequest(message=k) for k, _ in keys_xs],
+                [EchoResponse() for _ in keys_xs], lambda: None)
+            return ctrls
+
+        mix = [("w", xs[0]), ("odd", xs[1][:d - 2].copy()), ("w", xs[2])]
+        e0 = kern.executions
+        injector.arm(FaultPlan([FaultSpec("collective.merge", "reset", probability=1.0,
+                                          match={"method": "PsService.Forward"})],
+                               seed=SEED, name="mesh-merge-reset"))
+        try:
+            armed = batch(mix)
+        finally:
+            injector.disarm()
+        check([c.failed() for c in armed] == [True, False, True]
+              and armed[0].error_code == armed[2].error_code == errors.EINTERNAL,
+              "the merge reset must fail the sharded group's rows only, EINTERNAL: "
+              f"{[(c.failed(), c.error_code) for c in armed]}")
+        check(kern.executions == e0, "the reset batch executed (or was retried on one chip)")
+        after = batch(mix)
+        check(not any(c.failed() for c in after), "disarmed traffic did not recover")
+        verify([(0, after[0].response_attachment.to_bytes()),
+                (2, after[2].response_attachment.to_bytes())], "after the reset")
+        print("[mesh] chaos collective.merge reset: the sharded group's 2 rows failed "
+              "EINTERNAL, the single-chip group's row in the same batch ran; not executed, "
+              "not retried; disarmed, all 3 rows held")
+
+        # ---- a live remesh to 2 chips under p = 8 load -------------------
+        srv.enable_method_batching("PsService.Forward")
+        half = create_mesh((1, 2), devices=[dev] * 2)
+        e0 = kern.executions
+        box = {}
+
+        def load():
+            box["run"] = closed_loop(stubs, req, x_bytes, 8, 1.5)
+
+        t = threading.Thread(target=load)
+        t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        replaced = svc.remesh(half)
+        remesh_ms = (time.perf_counter() - t0) * 1e3
+        e_cut = kern.executions
+        t.join(60)
+        check(not t.is_alive() and "run" in box, "the load across the remesh never finished")
+        lats, ys, wall, _ = box["run"]  # closed_loop fails on any failed Forward
+        worst = verify(ys, "across the remesh")
+        check(replaced == 1, f"remesh re-placed {replaced} parameters, not 1")
+        check(svc.shard_kernel is kern and kern.n_shards() == 2
+              and [tuple(s.shape) for s in svc._store["w"].shards] == [(d // 2, d)] * 2,
+              "after the remesh W is not on 2 chips")
+        check(kern.executions > e_cut > e0, "no batch ran on one side of the cutover")
+        summary["remesh_ms"] = remesh_ms
+        print(f"[mesh] live remesh {n} -> 2 chips under p = 8 load: {remesh_ms:.3f} ms, "
+              f"re-placed 1 (odd stays single-chip); {len(lats)} Forwards in {wall:.2f} s, "
+              f"none failed, {e_cut - e0} executions before the cutover and "
+              f"{kern.executions - e_cut} after; max |y - ref| / (|x| @ |W|) {worst:.3g}")
+        counts = dict(T.launches)  # ... and ends here
+
+        # ---- the servable-dim ceiling, proven by placement ---------------
+        budget = MESH_CHIP_BUDGET
+        d1, dn = max_servable_dim(budget, 1), max_servable_dim(budget, n)
+        wide = PsService(mesh=mesh)
+        big = torch.zeros((dn, dn), device=dev)
+        check(wide.put_param("big", big) is True, "the ceiling matrix did not shard")
+        per_chip = [s.nbytes for s in wide._store["big"].shards]
+        check(dn >= 2 * d1 and max(per_chip) <= budget < big.nbytes,
+              f"ceiling: d1 {d1}, d{n} {dn}, per chip {per_chip} of {budget}")
+        print(f"[mesh] max_servable_dim at {budget >> 20} MiB a chip: {d1} on one chip, {dn} "
+              f"on {n}; ({dn}, {dn}) f32 placed at {max(per_chip)} B a chip, "
+              f"{big.nbytes} B in all")
+        del wide, big
+    finally:
+        for ch in channels:
+            ch.close()
+        srv.stop()
+    summary["put_ms"], summary["get_ms"] = put_ms, get_ms
+    return counts, summary
+
+
+def mesh_prefill(torch, dev):
+    """PrefillService(mesh=) at SERVE_DIM with the [serve] phase's layer
+    count and prompts: every KV layer within PS_RTOL * (|s| @ |W|) of
+    tanh(s @ W) in float64 from the layer below, prefill once a
+    session, one sharded execution and merge per layer."""
+    from incubator_brpc_tpu_torch.cache import HBMCacheStore
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+    from incubator_brpc_tpu_torch.serving.prefill import PrefillService, prompt_seed_state
+    from incubator_brpc_tpu_torch.serving.session import kv_layer_keys
+
+    d, n = SERVE_DIM, MESH_CHIPS
+    store = HBMCacheStore(SERVE_STORE)
+    pf = PrefillService(store, dim=d, n_layers=SERVE_LAYERS,
+                        mesh=create_mesh((1, n), devices=[dev] * n))
+    check(pf.device == dev and [tuple(s.shape) for s in pf._w_dev.shards] == [(d // n, d)] * n,
+          "the prefill W is not row-sharded over the mesh")
+    pf.prefill_sessions([("mesh-warm", "warmup prompt")])
+    prompts = [f"point prompt {i}" for i in range(max(SERVE_P))]
+    reqs = [(f"mesh-{i}", p) for i, p in enumerate(prompts)]
+    e0, m0 = pf._sharded.executions, pf._sharded.collective_merges
+    t0 = time.perf_counter()
+    out = pf.prefill_sessions(reqs)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(pf._sharded.executions - e0 == pf._sharded.collective_merges - m0 == SERVE_LAYERS - 1,
+          "the window ran other than one sharded execution and merge per layer")
+    check(all(out[s]["prefill_executions"] == 1 == pf.prefill_executions[s] for s, _ in reqs),
+          "a session was prefilled more than once")
+    wd = torch.from_numpy(pf._w).to(dev).double()
+    wa = wd.abs()
+    worst = 0.0
+    try:
+        for sid, prompt in reqs:
+            layers = [store.get(k) for k in kv_layer_keys(sid, 0, SERVE_LAYERS)]
+            check(all(v is not None for v in layers), f"{sid}: a KV layer is missing")
+            seed = torch.from_numpy(prompt_seed_state(prompt, d)).to(dev)
+            check(same_bytes(torch, layers[0], seed), f"{sid}: layer 0 is not the seed state")
+            for lo, hi in zip(layers, layers[1:]):
+                s_in = lo.double()
+                bad, w_ = past_f64(hi, torch.tanh(s_in @ wd), s_in.abs() @ wa)
+                check(bad == 0, f"{sid}: {bad} KV entries off by up to {w_:.3g} of |s| @ |W|")
+                worst = max(worst, w_)
+    finally:
+        store.flush()
+    print(f"[mesh] sharded prefill d = {d}, {SERVE_LAYERS} layers on {n} virtual chips: "
+          f"{len(reqs)} sessions in one window {ms:.2f} ms, {SERVE_LAYERS - 1} sharded "
+          f"executions; prefill_executions 1 each; every layer within {PS_RTOL} of "
+          f"|s| @ |W| of the float64 recurrence (worst {worst:.3g})")
+    return {"prefill_ms": ms}
+
+
+def mesh_train(torch, dev):
+    """make_training_step on a (2, 2) mesh of virtual chips at dim =
+    SERVE_DIM, batch MESH_BATCH, MESH_STEPS steps: the loss falls at
+    every step, step 1's parameters within PS_RTOL of a float64 step of
+    the plain unsharded version (scale |w| + lr * the step's gradient
+    with every term's magnitude), and the median step time."""
+    from incubator_brpc_tpu_torch.models.parameter_server import make_training_step
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    d, b, lr = SERVE_DIM, MESH_BATCH, 0.01
+    mesh = create_mesh((2, 2), devices=[dev] * 4)
+    step, params, x = make_training_step(mesh, dim=d, batch=b, lr=lr)
+    # the plain unsharded step in float64, and each gradient's magnitude
+    w1, w2, xf = (t.full().double() for t in (params["w1"], params["w2"], x))
+    a = xf @ w1
+    mask = (a > 0).double()
+    h = a * mask
+    y = h @ w2
+    dy = 2 * y / (b * d)
+    g2 = h.T @ dy
+    g1 = xf.T @ ((dy @ w2.T) * mask)
+    loss64 = (y * y).mean().item()
+    ha = (xf.abs() @ w1.abs()) * mask
+    dya = 2 * (ha @ w2.abs()) / (b * d)
+    g2a = ha.T @ dya
+    g1a = xf.abs().T @ ((dya @ w2.abs().T) * mask)
+    ref = {"w1": (w1 - lr * g1, w1.abs() + lr * g1a), "w2": (w2 - lr * g2, w2.abs() + lr * g2a)}
+    del a, mask, h, y, dy, ha, dya
+    losses, times = [], []
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, loss = step(params, x)
+        loss = loss.item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if i == 0:
+            check(abs(loss - loss64) <= PS_RTOL * loss64, f"step 1 loss {loss} vs float64 {loss64}")
+            for name, (want, sc) in ref.items():
+                bad, worst = past_f64(params[name].full(), want, sc)
+                check(bad == 0, f"step 1 {name}: {bad} entries off by up to {worst:.3g} of "
+                                f"|w| + lr * |grad|")
+                print(f"[mesh] train step 1 {name}: every entry within {PS_RTOL} of "
+                      f"|w| + lr * |grad| of the float64 plain step (worst {worst:.3g})")
+    del ref, w1, w2, xf, g1, g2, g1a, g2a
+    check(all(nxt < prev for prev, nxt in zip(losses, losses[1:])),
+          f"the loss did not fall at every step: {losses}")
+    med = statistics.median(times[1:])
+    print(f"[mesh] make_training_step on a (2, 2) mesh of {dev}, dim {d}, batch {b}: losses "
+          + ", ".join(f"{v:.6f}" for v in losses)
+          + f" (falling at every step; float64 step 1 {loss64:.6f}); step {med:.3f} ms median "
+          f"of steps 2-{MESH_STEPS} (step 1 {times[0]:.3f} ms)")
+    return {"train_step_ms": med}
+
+
+def phase_mesh(torch, T, ps_summary):
+    """The single-controller mesh on the card: the collectives, the
+    in-mesh sharded PS, the sharded prefill and the dp x tp training
+    step.  Returns (launch counts of the path, its figures)."""
+    dev = card(torch)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 must stay off")
+    t0 = time.perf_counter()
+    times = mesh_collectives(torch, dev)
+    counts, summary = mesh_ps(torch, T, dev, ps_summary)
+    T.reset_launch_counts()  # prefill and training hop nothing over ici://
+    summary.update(mesh_prefill(torch, dev))
+    summary.update(mesh_train(torch, dev))
+    rest = {k: v for k, v in T.launches.items() if v}
+    check(not rest, f"the mesh's prefill and training step launched {rest}")
+    summary["collectives"] = times
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts, summary
+
+
 def profile_windows(torch, fn, what, kernel=None, windows: int = 3, tries: int = 8):
     """Up to ``windows`` profiler windows over fn() that saw CUDA work
     (those whose name holds ``kernel``, or any), as (busy_us, by_name):
@@ -3164,25 +3646,81 @@ def chunk_walk(T, x, out, carry, br):
     return carry
 
 
+def queued_ms(torch, fn, iters: int = 20, windows: int = 3) -> float:
+    """Device ms per call of fn() with the calls run back to back: they
+    are queued behind a sleep kernel, so the card runs them with no host
+    gap between and each pays for the write-back of the output its
+    predecessor left dirty in the L2.  (Between launches spaced by the
+    host, that write-back drains in the idle gap after the kernel's span
+    ends, so a span alone can read under the HBM bound.)  The events
+    bracket the calls alone; the median of ``windows``.  A window whose
+    calls took the host longer to enqueue than the card slept is taken
+    again with twice the sleep; after SLEEP_TRIES such windows it fails."""
+    fn()
+    seen, cycles, tries = [], SLEEP_CYCLES, 0
+    while len(seen) < windows:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        slept = ev[0].elapsed_time(ev[1])
+        if host_ms < slept:
+            seen.append(ev[1].elapsed_time(ev[2]) / iters)
+            continue
+        tries += 1
+        check(tries < SLEEP_TRIES, f"enqueueing {iters} calls took {host_ms:.2f} ms, longer "
+                                   f"than the card's {slept:.2f} ms sleep, {tries} times")
+        cycles *= 2
+    return statistics.median(seen)
+
+
+def cold_pairs(torch, x):
+    """COLD_PAIRS distinct (source, destination) pairs of x's shape, x's
+    bytes in each source: launches walked over them in turn each find
+    their frame cold, the previous launch having touched another pair
+    (a 64 MB frame and its copy are 2.6x the 50 MB L2)."""
+    return [(x if i == 0 else x.clone(), torch.empty_like(x)) for i in range(COLD_PAIRS)]
+
+
+def walk(fn, pairs):
+    """fn(src, dst) over ``pairs`` in turn, one pair a call."""
+    it = itertools.cycle(pairs)
+    return lambda: fn(*next(it))
+
+
 def transmit_ms(torch, T, x, w):
     """Device ms per call of each copy+checksum transmit, every kernel
-    the call launches summed (so a tree whose fold is a launch of its
-    own is timed with its fold): ``chunk``, one CHUNK_ROWS-row chunk of
+    the call launches included (so a tree whose fold is a launch of its
+    own is timed with its fold), each launch finding its frame cold in
+    the 50 MB L2, as on the path: ``chunk``, one CHUNK_ROWS-row chunk of
     the frame ``x`` with a carry into a slot, as the pipelined mode's
-    ring hits run it, walked over the frame's chunks so that each finds
-    the 50 MB L2 cold, as on the path; ``frame``, K1 on ``x``; ``w``, K1
-    on the PS path's W ``w``; ``staged``, K2 on ``x``."""
+    ring hits run it, walked over the frame's chunks (the profiler's
+    kernel spans); ``frame``, K1 on ``x``, and ``w``, K1 on the PS
+    path's W ``w``, each walked over distinct buffers (``cold_pairs``)
+    and run back to back (``queued_ms``); ``staged``, K2 on ``x``
+    likewise.  ``frame_span`` and ``w_span`` are K1's kernel spans in
+    the profiler between launches spaced by the host, on one buffer."""
     out, w_out = torch.empty_like(x), torch.empty_like(w)
     br, w_br = T._fit_block_rows(x.shape[0]), T._fit_block_rows(w.shape[0])
     sr = T.pallas_stage_rows(x, br)
     carry = torch.randn((1, x.shape[1]), generator=torch.Generator(device=x.device).manual_seed(7),
                         device=x.device)
+    xs, ws = cold_pairs(torch, x), cold_pairs(torch, w)
     return {
         "chunk": device_ms(torch, lambda: chunk_walk(T, x, out, carry, br))
         / (x.shape[0] // CHUNK_ROWS),
-        "frame": device_ms(torch, lambda: T._copy_csum(x, None, br, out=out)),
-        "w": device_ms(torch, lambda: T._copy_csum(w, None, w_br, out=w_out)),
-        "staged": device_ms(torch, lambda: T._staged_copy_csum(x, br, sr, out=out)),
+        "frame": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, br, out=o), xs)),
+        "w": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, w_br, out=o), ws)),
+        "staged": queued_ms(torch, walk(lambda s, o: T._staged_copy_csum(s, br, sr, out=o), xs)),
+        "frame_span": device_ms(torch, lambda: T._copy_csum(x, None, br, out=out)),
+        "w_span": device_ms(torch, lambda: T._copy_csum(w, None, w_br, out=w_out)),
     }
 
 
@@ -3195,6 +3733,7 @@ def phase_times(torch, T, errs, totals):
     br = T._fit_block_rows(m)
     out = torch.empty_like(x)
     ms = transmit_ms(torch, T, x, w)
+    xs = cold_pairs(torch, x)
 
     clone_ms = cuda_ms(torch, lambda: x.clone())
     plain_ms = cuda_ms(torch, lambda: T.copy_csum_plain(x, None, br), iters=5)
@@ -3206,8 +3745,7 @@ def phase_times(torch, T, errs, totals):
         ("copy_csum_blocks", ms["frame"], plain_ms, copy_bytes, m * n),
         ("copy_csum_staged", ms["staged"], plain_ms, copy_bytes, m * n),
         # a pure copy does no arithmetic: bound by its 2 x 64 MiB alone
-        ("copy_blocks", device_ms(torch, lambda: T._launch_copy_blocks(x, out),
-                                  "copy_blocks_kernel"),
+        ("copy_blocks", queued_ms(torch, walk(T._launch_copy_blocks, xs)),
          cuda_ms(torch, lambda: T.device_copy_plain(x)), 2 * x.nbytes, 0),
     ]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3225,13 +3763,20 @@ def phase_times(torch, T, errs, totals):
         }
         if name in OFF_PATH:
             row["launched_in"] = OFF_PATH[name]
+            row["span_ms"] = device_ms(torch, lambda: T._launch_copy_blocks(x, out),
+                                       "copy_blocks_kernel")
         rows.append(row)
         print(f"[times] {name:17} {k_ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms, "
               f"plain {plain:.4f} ms, x.clone() {clone_ms:.4f} ms)")
     # K1 at the width the PS path gives it: W, (6144, 6144) f32
     w_bound = max((2 * w.nbytes + 4 * PS_DIM) / HBM_BYTES_PER_S,
                   w.numel() / F32_OPS_PER_S) * 1e3
-    rows[0].update(ps_w_ms=ms["w"], ps_w_bound_ms=w_bound)
+    rows[0].update(ps_w_ms=ms["w"], ps_w_bound_ms=w_bound, span_ms=ms["frame_span"],
+                   ps_w_span_ms=ms["w_span"])
+    print(f"[times] kernel spans in the profiler, launches spaced by the host on one buffer "
+          f"(part of the output drains from the L2 after the span): copy_csum_blocks 64 MB "
+          f"{ms['frame_span']:.4f} ms, on W {ms['w_span']:.4f} ms, copy_blocks "
+          f"{rows[2]['span_ms']:.4f} ms")
     print(f"[times] copy_csum_blocks on W {w.shape[0]}x{w.shape[1]} f32: {ms['w']:.4f} ms "
           f"(bound {w_bound:.4f} ms, {ms['w'] / w_bound:.2f}x)")
     # K1 at the pipelined mode's chunk: one 8 MB (1024, 2048) f32 chunk
@@ -3316,15 +3861,16 @@ def main() -> int:
     serve_counts = dict(T.launches)
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
     http_counts, http_trace = phase_http(torch, T)
+    mesh_counts, _ = phase_mesh(torch, T, ps_summary)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
-             cluster_counts, http_counts]
+             cluster_counts, http_counts, mesh_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
-          f"http {http_counts}")
+          f"http {http_counts}; mesh {mesh_counts}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),
-                    ("http", http_counts)]:
+                    ("http", http_counts), ("mesh", mesh_counts)]:
         check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")
     check(cluster_counts["copy_csum_staged"] > 0, "K2 never launched on the cluster path")
     for k, v in totals.items():

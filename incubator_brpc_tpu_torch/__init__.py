@@ -19,8 +19,11 @@ balancers), the combo channels (``client/combo.py``: parallel,
 selective, partition and shard-routed fan-out), and on top of them the
 clustered cache tier (``CacheChannel``) and the sharded parameter
 server (``sharded_ps_channel``, ``scatter_param``), each replicated
-(``replication/``) and live-resharded (``resharding/``).  ROADMAP.md
-lists what remains.
+(``replication/``) and live-resharded (``resharding/``); the
+single-controller mesh and its collective lowerings
+(``parallel/mesh.py``, ``parallel/collectives.py``) with the in-mesh
+sharded parameter server and prefill (``batching/sharded.py``) and the
+dp x tp training step.  ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

@@ -47,6 +47,16 @@ def trace_count() -> int:
     return _trace_count[0]
 
 
+def promoted_matmul(w, x):
+    """``x @ w``, promoting mixed operand types as ``jnp`` does
+    (``torch.matmul`` refuses them): the batched product of the PS and
+    of each chip of the sharded kernel."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        return x.to(t) @ w.to(t)
+    return x @ w
+
+
 def _signature(args) -> tuple:
     """What a JAX trace specializes on: each argument's shape, dtype
     and device."""

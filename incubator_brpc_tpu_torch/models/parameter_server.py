@@ -14,13 +14,21 @@ Where the port differs from the JAX package:
   ``parallel/mesh.py`` helper; with no card and no device it raises).
   ``put_param`` of a numpy array places it there once; the JAX package
   stores the numpy array and lets ``jax.jit`` upload it on every call.
+  With a mesh the device defaults to the mesh's first chip's.
   A W that arrives by Put is the tensor the fabric delivered, stored as
   is.
-- **One store per server.**  The in-mesh sharded store (``mesh=`` over
-  more than one chip, ``remesh``) is ROADMAP.md queue 1 item 5 and the
-  training step (``make_training_step``) item 13; each raises
-  ``NotImplementedError`` naming its item.  The shard-per-server
-  deployment runs: ``sharded_ps_channel`` fans a Forward out over
+- **The sharded store runs over a single-controller mesh.**
+  ``PsService(mesh=)`` over more than one chip row-shards eligible
+  matrices into a ``ShardedTensor`` (``parallel/collectives.py``), each
+  chip's rows on that chip's device (four virtual chips on one card
+  share it), and a batched Forward on a sharded key runs through
+  ``batching/sharded.ShardedFusedKernel``: one product per chip and one
+  chip-order psum per batch.  ``Get`` of a sharded key attaches the
+  assembled W on the service's device, the bytes of the logical
+  matrix, as the JAX package's ``append_device`` of a sharded array
+  does.  ``make_training_step`` is the dp x tp step on the same mesh,
+  differentiated by ``torch.autograd``.  The shard-per-server
+  deployment runs too: ``sharded_ps_channel`` fans a Forward out over
   several ``PsService`` servers, and ``scatter_param`` places each
   shard's rows as a tensor on that shard's device, so every Put hop
   runs the copy+checksum kernel.
@@ -39,7 +47,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from incubator_brpc_tpu_torch.batching.fused import FusedKernel
+from incubator_brpc_tpu_torch.batching.fused import FusedKernel, promoted_matmul
 from incubator_brpc_tpu_torch.batching.policy import BatchPolicy
 from incubator_brpc_tpu_torch.observability.profiling import hbm_account, kernel_section
 from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
@@ -49,7 +57,6 @@ from incubator_brpc_tpu_torch.server.service import (
     batched_method,
     rpc_method,
 )
-from incubator_brpc_tpu_torch.unported import unported
 
 # HBM heap profiler hookup (observability/profiling.py): every stored
 # device parameter is adopted under this tag.  The handle is resolved at
@@ -101,14 +108,6 @@ PS_BATCH_POLICY = BatchPolicy(
 )
 
 
-def _forward(w, x):
-    # jnp promotes mixed operand types; torch.matmul refuses them
-    if x.dtype != w.dtype:
-        t = torch.promote_types(x.dtype, w.dtype)
-        return x.to(t) @ w.to(t)
-    return x @ w
-
-
 # Fused Forward kernel: Y = X @ W, one product per batch.  N separate
 # matvecs each stream the full W from memory (bandwidth-bound), while
 # the batched (rows, d) @ W streams W ONCE for the whole batch — the
@@ -116,7 +115,7 @@ def _forward(w, x):
 # batching.fused trace counter, so padding buckets bound its traces the
 # same way they bound the stack's.
 _FORWARD_KERNEL = FusedKernel(
-    _forward,
+    promoted_matmul,
     label="ps.forward",
     batch_buckets=PS_BATCH_POLICY.padding_buckets,
 )
@@ -135,9 +134,20 @@ class PsService(Service):
     become ONE padded (bucket, d) @ W product that streams the
     parameter matrix once for the batch instead of once per request.
 
-    ``device`` is where ``put_param`` places host arrays (default: the
-    card of chip 0; raises without a card unless given).  ``mesh`` over
-    more than one chip is the sharded store, not ported yet.
+    ``device`` is where ``put_param`` places host arrays and where
+    ``Get`` assembles a sharded value (default: the mesh's first chip's
+    device with a mesh, else the card of chip 0; raises without a card
+    unless given).
+
+    Pod-scale mode (docs/sharded_ps.md): construct with ``mesh=`` and
+    the store SHARDS eligible parameters across the mesh — a 2D matrix
+    whose row dim divides the "chip" axis is placed row-sharded, so
+    each chip holds d/n rows and the servable parameter size is bounded
+    by per-chip memory times the shard count (``max_servable_dim``).
+    Forward on a sharded key lowers the SAME padded batched product
+    through ``batching/sharded.ShardedFusedKernel``: one sharded
+    execution, cross-shard partials merged by ONE psum per batch.
+    ``mesh=None`` (the default) is the single-chip service.
     """
 
     SERVICE_NAME = "PsService"
@@ -145,33 +155,65 @@ class PsService(Service):
     def __init__(self, mesh=None, shard_axis: str = "chip", device=None):
         from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
 
-        if mesh is not None and int(mesh.shape.get(shard_axis, 1)) > 1:
-            unported("the sharded parameter server (PsService mesh=)", 5)
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self._device = device_for_chip(0, device)
         self._store: Dict[str, object] = {}
         self._lock = threading.Lock()
+        self._sharded_keys: set = set()
         # per-key (bytes, allocs) HBM charge, mutated under self._lock
         self._hbm: Dict[str, tuple] = {}
+        self._shard_kernel = None
+        if mesh is not None and int(mesh.shape.get(shard_axis, 1)) > 1:
+            from incubator_brpc_tpu_torch.batching.sharded import ShardedFusedKernel
+
+            self._shard_kernel = ShardedFusedKernel(
+                mesh, shard_axis, label=f"{self.SERVICE_NAME}.Forward"
+            )
 
     @property
     def shard_kernel(self):
-        """The sharded batch kernel: None, the port serves one card."""
-        return None
+        """The sharded batch kernel (None on single-chip services) —
+        its ``executions`` / ``collective_merges`` step log is how
+        tests and the bench-smoke guard prove the sharded lowering."""
+        return self._shard_kernel
+
+    def _place(self, value):
+        """(value as stored, whether it was sharded): row-sharded over
+        the mesh when eligible, else a numpy array on the service's
+        device, a tensor or ``bytes`` as is.  Runs outside the store
+        lock."""
+        if self._shard_kernel is not None:
+            try:
+                return self._shard_kernel.shard_param(value), True
+            except (ValueError, AttributeError):
+                pass  # ineligible shape: single-chip storage as-is
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(np.ascontiguousarray(value)).to(self._device)
+        return value, False
+
+    def _store_rows(self, rows) -> None:
+        """Store (key, value, sharded, charge) rows under one lock
+        acquisition."""
+        with self._lock:
+            for key, val, sharded, charge in rows:
+                _hbm_release(self._hbm.pop(key, _NO_CHARGE))
+                self._store[key] = val
+                if charge[0]:
+                    self._hbm[key] = charge
+                if sharded:
+                    self._sharded_keys.add(key)
+                else:
+                    self._sharded_keys.discard(key)
 
     def put_param(self, key: str, value) -> bool:
         """Server-side store API (the bench and ops tooling seed through
-        this).  A numpy array is placed on the service's device once; a
-        tensor or ``bytes`` is stored as is.  Returns False: nothing is
-        sharded on one card."""
-        if isinstance(value, np.ndarray):
-            value = torch.from_numpy(np.ascontiguousarray(value)).to(self._device)
-        charge = _hbm_charge(value)  # metadata-only: fine outside the lock
-        with self._lock:
-            _hbm_release(self._hbm.pop(key, _NO_CHARGE))
-            self._store[key] = value
-            if charge[0]:
-                self._hbm[key] = charge
-        return False
+        this; the Put RPC stores the same way).  Returns True when the
+        value was sharded across the mesh."""
+        value, sharded = self._place(value)
+        # metadata-only charge: fine outside the lock
+        self._store_rows([(key, value, sharded, _hbm_charge(value))])
+        return sharded
 
     @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
     def Put(self, controllers, requests, responses, done):
@@ -184,18 +226,15 @@ class PsService(Service):
                 arrays = None
             if arrays:
                 # the fresh tensor the fabric delivered on this server
-                # port's device: stored as is
+                # port's device: stored as is, or its rows placed on
+                # the mesh's chips
                 val = arrays[0] if len(arrays) == 1 else arrays
             else:
                 val = att.to_bytes()
-            rows.append((request.message, val, _hbm_charge(val)))
+            val, sharded = self._place(val)
+            rows.append((request.message, val, sharded, _hbm_charge(val)))
             response.message = request.message
-        with self._lock:  # one acquisition serves the whole window
-            for key, val, charge in rows:
-                _hbm_release(self._hbm.pop(key, _NO_CHARGE))
-                self._store[key] = val
-                if charge[0]:
-                    self._hbm[key] = charge
+        self._store_rows(rows)  # one acquisition serves the whole window
         done()
 
     @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
@@ -205,6 +244,7 @@ class PsService(Service):
         # off the per-request overheads: one handler invocation, one
         # store-lock acquisition, one dispatch per window instead of N.
         from incubator_brpc_tpu_torch import errors
+        from incubator_brpc_tpu_torch.parallel.collectives import ShardedTensor
 
         with self._lock:
             vals = [self._store.get(r.message) for r in requests]
@@ -216,7 +256,13 @@ class PsService(Service):
                     errors.EREQUEST, f"no such key: {request.message}"
                 )
                 continue
-            if isinstance(val, (bytes, bytearray)):
+            if isinstance(val, ShardedTensor):
+                # the logical W, assembled from its shards: never one
+                # shard
+                controller.response_attachment.append_device(
+                    val.full(self._device)
+                )
+            elif isinstance(val, (bytes, bytearray)):
                 controller.response_attachment.append(val)
             elif isinstance(val, list):
                 for a in val:
@@ -246,17 +292,57 @@ class PsService(Service):
         with self._lock:
             existed = request.message in self._store
             self._store.pop(request.message, None)
+            self._sharded_keys.discard(request.message)
             _hbm_release(self._hbm.pop(request.message, _NO_CHARGE))
         response.message = "1" if existed else "0"
         done()
 
     def remesh(self, mesh, shard_axis: str = "chip") -> int:
-        """Re-mesh the store: ``mesh=None`` (or one chip) keeps the
-        single-card service and re-places nothing; more chips are the
-        sharded store, not ported yet."""
+        """Re-mesh the sharded store live (the server-side half of a
+        scheme migration): re-target the sharded batch kernel at the
+        new mesh and re-place every currently-sharded parameter under
+        the new sharding (batching/sharded.ShardedFusedKernel.remesh).
+        Returns the number of parameters re-placed.  ``mesh=None`` (or
+        one chip) drops to single-chip mode: each sharded value is
+        assembled on the service's device, and 0 is returned."""
+        from incubator_brpc_tpu_torch.batching.sharded import ShardedFusedKernel
+
+        with self._lock:
+            sharded = {k: self._store[k] for k in self._sharded_keys}
         if mesh is None or int(mesh.shape.get(shard_axis, 1)) <= 1:
-            return 0
-        unported("the sharded parameter server (PsService.remesh)", 5)
+            kernel = None
+            replaced = {k: v.full(self._device) for k, v in sharded.items()}
+            still_sharded = set()
+        else:
+            if self._shard_kernel is not None:
+                self._shard_kernel.remesh(mesh, shard_axis)
+                kernel = self._shard_kernel
+            else:
+                kernel = ShardedFusedKernel(
+                    mesh, shard_axis, label=f"{self.SERVICE_NAME}.Forward"
+                )
+            replaced = {}
+            still_sharded = set()
+            for key, val in sharded.items():
+                # placement (device copies) runs outside the store lock
+                try:
+                    replaced[key] = kernel.shard_param(val)
+                    still_sharded.add(key)
+                except (ValueError, AttributeError):
+                    # no longer shardable on the new mesh
+                    replaced[key] = val.full(self._device)
+        with self._lock:
+            self._shard_kernel = kernel
+            for key, val in replaced.items():
+                if key in self._store:  # deleted while re-placing: skip
+                    _hbm_release(self._hbm.pop(key, _NO_CHARGE))
+                    self._store[key] = val
+                    charge = _hbm_charge(val)
+                    if charge[0]:
+                        self._hbm[key] = charge
+                    if key not in still_sharded:
+                        self._sharded_keys.discard(key)
+        return len(still_sharded)
 
     @batched_method(EchoRequest, EchoResponse, policy=PS_BATCH_POLICY)
     def Forward(self, controllers, requests, responses, done):
@@ -280,6 +366,8 @@ class PsService(Service):
 
         with self._lock:
             params = {r.message: self._store.get(r.message) for r in requests}
+            sharded = {k for k in params if k in self._sharded_keys}
+            shard_kernel = self._shard_kernel
         # per-row parse + validate, grouped by parameter key so mixed
         # batches still fuse per key
         groups: Dict[str, list] = {}
@@ -316,6 +404,10 @@ class PsService(Service):
             X = np.zeros((max(pad_to, n), int(w.shape[0])), np.float32)
             for j, (_, x) in enumerate(rows):
                 X[j] = x
+            # sharded keys lower through the mesh kernel (one sharded
+            # execution + one psum merge); everything else rides the
+            # single-chip kernel unchanged
+            on_mesh = key in sharded and shard_kernel is not None
             try:
                 # device window: the pull below is the batch's one sync,
                 # so the section (and the span's device phase) times the
@@ -324,20 +416,24 @@ class PsService(Service):
                 if span is not None:
                     span.stamp("device_start_us")
                 with kernel_section("ps.forward"):
-                    out = _FORWARD_KERNEL(w, torch.from_numpy(X).to(w.device))
+                    if on_mesh:
+                        out = shard_kernel(w, X)
+                    else:
+                        out = _FORWARD_KERNEL(w, torch.from_numpy(X).to(w.device))
                     # pull ONLY the n live rows: the pad rows never cross
                     # the device boundary (the slice is a device view)
                     with allowed_transfer("ps.forward-pull"):
                         Y = (out[:n] if pad_to > n else out).cpu().numpy()
                 if span is not None:
                     span.stamp("device_done_us")
-            except Exception as e:  # noqa: BLE001 — a failed dispatch
-                # fails ONLY this key-group's rows; other groups in the
-                # batch still execute
+            except Exception as e:  # noqa: BLE001 — a failed merge
+                # (chaos collective.merge reset) or dispatch fails ONLY
+                # this key-group's rows; other groups in the batch still
+                # execute, and nothing is retried on one chip
                 for i, _ in rows:
                     controllers[i].set_failed(
                         errors.EINTERNAL,
-                        f"forward failed for {key!r}: {e}",
+                        f"{'sharded ' if on_mesh else ''}forward failed for {key!r}: {e}",
                     )
                 continue
             for j, (i, _) in enumerate(rows):
@@ -475,5 +571,89 @@ def scatter_param(shard_channel, key: str, w) -> None:
             )
 
 
+# ---- device side: the flagship sharded training step -----------------------
+#
+# Shardings (scaling-book recipe): W1 column-sharded over "chip", W2
+# row-sharded over "chip" (the matmul partials psum over "chip"), the
+# batch x row-split over "slice" (data parallel: the gradients reduce
+# over "slice").
+def train_specs():
+    """{"w1": spec, "w2": spec, "x": spec} of ``make_training_step``."""
+    from incubator_brpc_tpu_torch.parallel.collectives import P
+
+    return {"w1": P(None, "chip"), "w2": P("chip", None), "x": P("slice", None)}
+
+
+def _training_step(params, x, lr: float):
+    """One SGD step of ``mean((relu(x @ w1) @ w2) ** 2)`` over the mesh
+    of ``x``.  Each (slice, chip) computes its partial from its own
+    shards; the psum over "chip" is ``psum_in_order`` (autograd
+    differentiates it); the replicas of a chip's weight shard on the
+    other slices' devices are differentiable copies of one leaf per
+    chip, so autograd's own sum into each leaf is the gradient
+    reduction over "slice".  Returns (new_params, loss), the new shards
+    re-placed on every chip and the loss on the first chip's device."""
+    from incubator_brpc_tpu_torch.parallel.collectives import ShardedTensor, psum_in_order
+
+    mesh = x.mesh
+    n_slices, n_chips = mesh.devices.shape
+    leaves = {
+        name: [params[name].shard_at((0, c)).detach().requires_grad_()
+               for c in range(n_chips)]
+        for name in ("w1", "w2")
+    }
+    total = None
+    for s in range(n_slices):
+        parts = []
+        for c in range(n_chips):
+            dev = mesh.devices[s, c]
+            h = torch.relu(x.shard_at((s, c)) @ leaves["w1"][c].to(dev))
+            parts.append(h @ leaves["w2"][c].to(dev))
+        y = psum_in_order(parts, owned=True)  # the psum over "chip"
+        sq = (y * y).sum()
+        total = sq if total is None else total + sq.to(total.device)
+    loss = total / (x.shape[0] * params["w2"].shape[1])
+    loss.backward()
+    new_params = {}
+    with torch.no_grad():
+        for name, ws in leaves.items():
+            new = [w - lr * w.grad for w in ws]
+            # re-place: each chip's new shard, copied to the devices of
+            # the other slices' replicas
+            shards = [new[c].to(mesh.devices[s, c])
+                      for s in range(n_slices) for c in range(n_chips)]
+            new_params[name] = ShardedTensor(mesh, params[name].spec, shards,
+                                             params[name].shape)
+    return new_params, loss.detach()
+
+
 def make_training_step(mesh, dim: int = 256, batch: int = 32, lr: float = 0.01):
-    unported("the sharded training step (make_training_step)", 13)
+    """Build (step_fn, params, batch) over `mesh`, the JAX package's
+    dp x tp step: ``step_fn(params, x) -> (new_params, loss)``.
+
+    Shardings (``train_specs()``):
+      - W1: P(None, "chip")   tensor-parallel column shard
+      - W2: P("chip", None)   tensor-parallel row shard (the matmul
+                               partials psum over "chip")
+      - batch x: P("slice", None)  data-parallel; the gradients reduce
+                               over "slice"
+
+    The initial values come from ``torch.Generator`` seeded 0 (they
+    cannot equal ``jax.random``'s); ``convert.training_state_from_reference``
+    carries the JAX step's state across instead."""
+    from incubator_brpc_tpu_torch.parallel.collectives import shard_tensor
+
+    specs = train_specs()
+    g = torch.Generator().manual_seed(0)
+    w1 = torch.randn((dim, dim), generator=g) / dim ** 0.5
+    w2 = torch.randn((dim, dim), generator=g) / dim ** 0.5
+    x = torch.randn((batch, dim), generator=g)
+    params = {
+        "w1": shard_tensor(w1, mesh, specs["w1"]),
+        "w2": shard_tensor(w2, mesh, specs["w2"]),
+    }
+
+    def step(params, x):
+        return _training_step(params, x, lr)
+
+    return step, params, shard_tensor(x, mesh, specs["x"])

@@ -30,8 +30,12 @@ float32 with TF32 off, one eager call through ``FusedKernel`` per
 padded window; layer 0 is the seed state itself, bit-identical to the
 decode loop's.  The layer rows handed to the store are views of the
 (n_layers, bucket, dim) stack: the store keeps a compact copy of each,
-so the stack is freed once shipped.  The ``mesh=`` upgrade to sharded
-layer GEMMs is ROADMAP.md queue 1 item 5 and raises naming it.
+so the stack is freed once shipped.  With ``mesh=`` the n_layers - 1
+layer products run through ``batching/sharded.ShardedFusedKernel``
+(label ``PrefillService.Prefill``): W row-sharded over the mesh's
+"chip" axis, one product per chip and one chip-order psum per layer,
+``torch.tanh`` on the merged result; the device then defaults to the
+mesh's first chip's.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
 from incubator_brpc_tpu_torch.server.service import Service, ServiceStub, rpc_method
 from incubator_brpc_tpu_torch.serving import metrics as _metrics
 from incubator_brpc_tpu_torch.serving.session import kv_layer_keys
-from incubator_brpc_tpu_torch.unported import unported
 
 # Prefill-window contract: fuse up to 32 concurrent prompts per padded
 # execution (same buckets as the decode loop's GenPolicy).
@@ -140,9 +143,12 @@ class PrefillService(Service):
     ``store`` is the cache tier: an ``HBMCacheStore`` (co-resident
     pod; raw-array identity adoption) or a ``CacheChannel`` (remote
     tier; DeviceRef zero-copy over ICI) — anything with
-    ``set/delete``.  ``mesh`` (sharded layer GEMMs) is not ported yet;
-    the fused single-card kernel runs the math on ``device`` (default:
-    the card of chip 0; raises without a card unless given).
+    ``set/delete``.  ``mesh`` upgrades the layer GEMMs to sharded
+    executions (``ShardedFusedKernel``); without one the fused
+    single-card kernel runs the same math.  ``device`` holds the seeds
+    and the KV stack (default: the mesh's first chip's device with a
+    mesh, else the card of chip 0; raises without a card unless
+    given).
 
     EchoRequest.message = JSON ``{"session", "prompt"}``;
     EchoResponse.message = JSON ``{"session", "epoch", "n_layers",
@@ -162,8 +168,8 @@ class PrefillService(Service):
     ):
         if n_layers < 1:
             raise ValueError("n_layers must be >= 1")
-        if mesh is not None:
-            unported("the sharded prefill (PrefillService mesh=)", 5)
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = device_for_chip(0, device)
         self.store = store
         self.dim = dim
@@ -177,6 +183,14 @@ class PrefillService(Service):
             np.float32
         )
         self._w_dev = None
+        self._sharded = None
+        if mesh is not None:
+            from incubator_brpc_tpu_torch.batching.sharded import ShardedFusedKernel
+
+            self._sharded = ShardedFusedKernel(
+                mesh, label="PrefillService.Prefill"
+            )
+            self._w_dev = self._sharded.shard_param(self._w)
         self._kernel = FusedKernel(
             self._layers_fn(n_layers),
             label="prefill.layers",
@@ -209,13 +223,16 @@ class PrefillService(Service):
     def prewarm(self) -> None:
         """Trace the prefill kernel at every bucket so no jit compile
         lands inside a serving (or measured) window."""
+        if self._sharded is not None:
+            return  # sharded products count their traces on first use
         w = self._ensure_w()
         for b in self.policy.padding_buckets or (self.policy.max_batch_size,):
             self._kernel(w, torch.zeros((b, self.dim), device=self.device))
 
     def _layer_stack(self, seeds: np.ndarray):
         """(B, dim) host seeds → (n_layers, bucket, dim) device stack,
-        ONE padded fused execution (one h2d copy of the seeds)."""
+        ONE padded fused execution (one h2d copy of the seeds), or
+        n_layers-1 sharded product+merge executions on a mesh."""
         n = seeds.shape[0]
         pad_to = self.policy.bucket_for(n)
         if pad_to > n:
@@ -223,6 +240,13 @@ class PrefillService(Service):
                 [seeds, np.zeros((pad_to - n, self.dim), np.float32)]
             )
         with kernel_section("prefill.layers"):
+            if self._sharded is not None:
+                cur = torch.from_numpy(seeds).to(self.device)
+                out = [cur]
+                for _ in range(self.n_layers - 1):
+                    cur = torch.tanh(self._sharded(self._w_dev, cur))
+                    out.append(cur)
+                return torch.stack(out)
             return self._kernel(
                 self._ensure_w(), torch.from_numpy(seeds).to(self.device)
             )

@@ -884,32 +884,38 @@ def test_ps_forward_merge_sums_partials_like_jax():
 
 
 # ---------------------------------------------------------------------------
-# what the slice leaves for later
+# the mesh branches and the device default
 # ---------------------------------------------------------------------------
 
 
-class _Mesh:
-    def __init__(self, chips):
-        self.shape = {"slice": 1, "chip": chips}
-
-
 def test_ps_unported_branches_and_device_default(monkeypatch):
+    """The branches that raised before the mesh was ported now run: a
+    mesh over more than one chip gets the sharded kernel and shards an
+    eligible W; ``remesh`` to one chip drops it and assembles W; the
+    training step builds and steps.  The shard-per-server channel
+    refuses a scatter over no shard, and without a card and a device
+    the service raises."""
     from incubator_brpc_tpu_torch.models import parameter_server as P
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.PsService(mesh=_Mesh(4), device=CPU)
-    svc = P.PsService(mesh=_Mesh(1), device=CPU)
-    assert svc.shard_kernel is None and svc.remesh(None) == 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        svc.remesh(_Mesh(2))
-    # the shard-per-server channel is ported: it builds, and a scatter
-    # over no shard is refused (tests/test_torch_sharded_ps.py runs it)
+    svc = P.PsService(mesh=create_mesh((1, 4), devices=[CPU] * 4))
+    assert svc.shard_kernel is not None and svc.shard_kernel.n_shards() == 4
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+    assert svc.put_param("w", w) is True
+    assert [tuple(s.shape) for s in svc._store["w"].shards] == [(2, 8)] * 4
+    one = P.PsService(mesh=create_mesh((1, 1), devices=[CPU]), device=CPU)
+    assert one.shard_kernel is None and one.remesh(None) == 0
+    assert svc.remesh(None) == 0 and svc.shard_kernel is None
+    assert isinstance(svc._store["w"], torch.Tensor)
+    assert np.array_equal(svc._store["w"].numpy(), w)
     empty = P.sharded_ps_channel(endpoints=[])
     assert empty.partition_count() == 0
     with pytest.raises(ValueError, match="do not scatter"):
         P.scatter_param(empty, "w", np.zeros((4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.make_training_step(None)
+    step, params, x = P.make_training_step(
+        create_mesh((2, 2), devices=[CPU] * 4), dim=8, batch=4)
+    _, loss = step(params, x)
+    assert np.isfinite(float(loss))
     assert P.max_servable_dim(64 << 20) == 4096
     assert P.max_servable_dim(64 << 20, 4) == 8192
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -865,8 +865,8 @@ def test_saved_resharding_state_resumes_in_the_other_package(tmp_path, writer, r
 def test_tpu_mesh_naming_enumerates_the_devices_given():
     """``tpu://mesh`` names one slice of chips: the port's mesh over the
     devices a caller passes yields the JAX package's endpoints for a
-    mesh of as many chips; without a card and without devices it
-    raises."""
+    mesh of as many chips; ``create_mesh`` builds the same (1, n) mesh;
+    without a card and without devices both raise."""
     from incubator_brpc_tpu.parallel.mesh import ici_endpoints as j_endpoints
     from incubator_brpc_tpu_torch.parallel import mesh
 
@@ -876,8 +876,11 @@ def test_tpu_mesh_naming_enumerates_the_devices_given():
     jmesh = types.SimpleNamespace(devices=np.empty((1, 3), dtype=object))
     assert eps == [str(ep) for ep in j_endpoints(jmesh)]
     assert mesh.device_of(m, mesh.ici_endpoints(m)[1]) == CPU
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mesh.create_mesh()
+    cm = mesh.create_mesh(devices=[CPU, CPU, CPU])
+    assert cm.devices.shape == (1, 3) and dict(cm.shape) == {"slice": 1, "chip": 3}
+    assert [str(ep) for ep in mesh.ici_endpoints(cm)] == eps
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mesh.default_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.create_mesh()

@@ -341,6 +341,99 @@ def test_sharded_scatter_and_fanout_forward_on_the_card(cuda_device):
     assert np.all(np.abs(y - ref) <= 2e-6 * scale)
 
 
+def _chip_devices(n):
+    """n chips over the cards as the port places them: chip j on
+    cuda:(j % count), so one card holds n virtual chips and four cards
+    one chip each."""
+    from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
+
+    return [device_for_chip(j) for j in range(n)]
+
+
+def test_mesh_collectives_on_the_cards(cuda_device):
+    """Each lowering over a (1, 4) mesh of chips on the cards, held to a
+    plain version on cuda:0: gather, all_to_all, the ring and the hedged
+    pick byte-equal, the psum bit-equal to the chip-order sum; every
+    chip's result lies on its own chip's device."""
+    from incubator_brpc_tpu_torch.parallel import collectives as C
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    devs = _chip_devices(4)
+    mesh = create_mesh((1, 4), devices=devs)
+    x = torch.randn((4 * 64, 32), generator=torch.Generator().manual_seed(21)).to(cuda_device)
+    blocks = list(x.split(64))
+    psum = blocks[0].clone()
+    for b in blocks[1:]:
+        psum += b
+    ring = []
+    for k in range(4):
+        acc = blocks[k]
+        for hop in range(1, 4):
+            acc = acc + blocks[(k - hop) % 4]
+        ring.append(acc)
+    flags = torch.tensor([0.0, 1.0, 0.0, 1.0], device=cuda_device)
+    a2a = [torch.cat([b[:, 8 * i:8 * (i + 1)] for b in blocks]) for i in range(4)]
+    cases = [
+        (C.parallel_merge(mesh, "chip", "sum")(x), [psum] * 4),
+        (C.parallel_broadcast_gather(mesh, "chip")(x), [x] * 4),
+        (C.partition_reshard(mesh, "chip")(x), a2a),
+        (C.ring_stream(mesh, "chip")(x), ring),
+        (C.hedged_first_valid(mesh, "chip")(x, flags), [blocks[1] + 0] * 4),
+    ]
+    for out, plain in cases:
+        for k, (shard, want) in enumerate(zip(out.shards, plain)):
+            assert shard.device == devs[k]
+            assert torch.equal(shard.cpu().view(torch.int32), want.cpu().view(torch.int32))
+
+
+def test_mesh_ps_and_training_step_on_the_cards(cuda_device):
+    """PsService(mesh=) over 4 chips on the cards: W's rows on each
+    chip's device, a batch of Forwards within 2e-6 x (|x| @ |W|) of the
+    float64 product with one execution and one merge; the dp x tp step
+    on a (2, 2) mesh equal to the plain unsharded step within 2e-6 of
+    |w| + lr |grad| and its loss falling."""
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, make_training_step
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+
+    devs = _chip_devices(4)
+    d = 1024
+    g = torch.Generator().manual_seed(22)
+    w = torch.randn((d, d), generator=g) / d ** 0.5
+    xs = torch.randn((8, d), generator=g)
+    svc = PsService(mesh=create_mesh((1, 4), devices=devs))
+    assert svc.put_param("w", w.numpy()) is True
+    assert [s.device for s in svc._store["w"].shards] == devs
+    ctrls = []
+    for x in xs:
+        c = Controller()
+        c.request_attachment.append_user_data(x.numpy().tobytes())
+        ctrls.append(c)
+    PsService.Forward.__batch_fn__(svc, ctrls, [EchoRequest(message="w")] * 8,
+                                   [EchoResponse() for _ in ctrls], lambda: None)
+    assert svc.shard_kernel.executions == svc.shard_kernel.collective_merges == 1
+    y = np.stack([np.frombuffer(c.response_attachment.to_bytes(), np.float32) for c in ctrls])
+    ref = xs.double().numpy() @ w.double().numpy()
+    scale = np.abs(xs.double().numpy()) @ np.abs(w.double().numpy())
+    assert np.all(np.abs(y - ref) <= 2e-6 * scale)
+
+    lr = 0.01
+    step, params, xx = make_training_step(create_mesh((2, 2), devices=devs), dim=256,
+                                          batch=16, lr=lr)
+    w1, w2 = (params[k].full().double().requires_grad_() for k in ("w1", "w2"))
+    loss64 = torch.mean((torch.relu(xx.full().double() @ w1) @ w2) ** 2)
+    loss64.backward()
+    new, loss = step(params, xx)
+    for name, w64 in (("w1", w1), ("w2", w2)):
+        want = (w64 - lr * w64.grad).detach()
+        got = new[name].full().double()
+        assert torch.all((got - want).abs() <= 2e-6 * (w64.abs() + lr * w64.grad.abs()) + 1e-12)
+        assert [s.device for s in new[name].shards] == devs
+    _, loss2 = step(new, xx)
+    assert float(loss2) < float(loss) and abs(float(loss) - float(loss64.detach())) <= 2e-6 * float(loss64.detach())
+
+
 def test_device_capture_trace_names_k1(cuda_device):
     """/hotspots/device?seconds=N while echoes run on the card: no
     trace_error, the exported torch.profiler trace names K1 with its

@@ -537,6 +537,32 @@ c = Controller(); echo_stub(tcp).Echo(c, EchoRequest(message="dumped")); assert 
 assert replay(f"127.0.0.1:{srv.port}", srv._rpc_dump_ctx.dump_dir, report=lambda *_: None) >= 1
 assert trackme.pinger().ping_now() is None
 ch.close(); tcp.close(); srv.stop(); gen.close()
+# the mesh: a collective, the in-mesh sharded PS over ici://, the
+# sharded prefill and the dp x tp training step
+from incubator_brpc_tpu_torch import convert
+from incubator_brpc_tpu_torch.batching.sharded import ShardedFusedKernel
+from incubator_brpc_tpu_torch.models.parameter_server import make_training_step
+from incubator_brpc_tpu_torch.parallel import collectives as coll
+from incubator_brpc_tpu_torch.parallel import create_mesh
+mesh = create_mesh((1, 4), devices=[cpu] * 4)
+x = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+assert torch.equal(coll.parallel_merge(mesh)(x).full(), x.reshape(4, 2, 4).sum(0))
+svc = PsService(mesh=mesh); srv = Server(); srv.add_service(svc)
+assert srv.start_ici(3, 82, device=cpu) == 0
+ch = Channel(opts); assert ch.init("ici://slice3/chip82") == 0
+c = Controller(); c.request_attachment.append_device(torch.from_numpy(w))
+ps_stub(ch).Put(c, EchoRequest(message="w")); assert not c.failed(), c.error_text()
+c = Controller(); c.request_attachment.append_user_data(np.ones(16, np.float32).tobytes())
+ps_stub(ch).Forward(c, EchoRequest(message="w")); assert not c.failed(), c.error_text()
+assert np.array_equal(np.frombuffer(c.response_attachment.to_bytes(), np.float32), w.sum(0))
+assert svc.shard_kernel.executions == 1 and svc.remesh(create_mesh((1, 2), devices=[cpu] * 2)) == 1
+ch.close(); srv.stop()
+pf = PrefillService(HBMCacheStore(1 << 20, device=cpu), dim=8, n_layers=2, mesh=mesh)
+assert pf.prefill_sessions([("m", "mesh")])["m"]["prefill_executions"] == 1
+step, params, xx = make_training_step(create_mesh((2, 2), devices=[cpu] * 4), dim=8, batch=4)
+params, loss = step(params, xx)
+params, xx = convert.training_state_from_reference(
+    {k: v.full().numpy() for k, v in params.items()}, xx.full().numpy(), mesh)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))

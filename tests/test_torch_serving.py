@@ -789,6 +789,47 @@ def test_prefill_window_is_one_batched_execution_held_to_jax():
             assert np.all(np.abs(layers[layer].numpy() - jl) <= layer * bound)
 
 
+@pytest.mark.parametrize("n_sessions", [1, 5])
+def test_sharded_prefill_on_a_mesh_held_to_jax(n_sessions):
+    """PrefillService(mesh=) on a (1, 4) mesh in both packages: the
+    layer products run through the sharded kernel (one execution and
+    one merge per layer, W row-sharded over the chips), each session is
+    prefilled once, layer 0 is the seed state bit for bit, and the upper
+    layers are within the state tolerance of the JAX service's."""
+    import jax
+
+    from incubator_brpc_tpu.parallel.mesh import create_mesh as j_create_mesh
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    n_layers = 4
+    store = HBMCacheStore(hbm_budget_bytes=1 << 24, device=CPU)
+    pf = PrefillService(store, dim=DIM, n_layers=n_layers,
+                        mesh=create_mesh((1, 4), devices=[CPU] * 4))
+    jstore = JStore(hbm_budget_bytes=1 << 24)
+    jpf = JPrefill(jstore, dim=DIM, n_layers=n_layers,
+                   mesh=j_create_mesh((1, 4), devices=jax.devices("cpu")[:4]))
+    assert [tuple(s.shape) for s in pf._w_dev.shards] == [(DIM // 4, DIM)] * 4
+    pf.prewarm()  # returns early on a mesh, as the JAX service's does
+    reqs = [(f"m{i}", f"mesh prompt {i}") for i in range(n_sessions)]
+    out = pf.prefill_sessions(reqs)
+    jout = jpf.prefill_sessions(reqs)
+    assert pf.batches == jpf.batches == 1
+    assert {k: v["prefill_executions"] for k, v in out.items()} == \
+        {k: v["prefill_executions"] for k, v in jout.items()} == {s: 1 for s, _ in reqs}
+    assert pf._sharded.executions == pf._sharded.collective_merges == n_layers - 1
+    assert jpf._sharded.executions == n_layers - 1
+    w = np.abs(jpf._w.astype(np.float64))
+    for sid, prompt in reqs:
+        keys = kv_layer_keys(sid, 0, n_layers)
+        layers = [store.get(k) for k in keys]
+        assert np.array_equal(layers[0].numpy(), seed_state(prompt, DIM))
+        for layer in range(1, n_layers):
+            jl = np.asarray(jstore.get(keys[layer]))
+            s_in = np.asarray(jstore.get(keys[layer - 1])).astype(np.float64)
+            bound = RTOL * (np.abs(s_in) @ w) + ATOL
+            assert np.all(np.abs(layers[layer].numpy() - jl) <= layer * bound)
+
+
 def test_decode_pull_is_fused_dmget(closer):
     store, pf, reps, ch = _tier(closer, n_layers=3)
     t0 = p_store_mod._mget_gather.trace_count()
@@ -984,8 +1025,8 @@ def test_uint8_kv_row_bitcasts_on_the_device():
 def test_unported_fronts_raise_naming_their_item(closer):
     """The SSE fronts are ported: called directly, each switches its
     response to a text/event-stream progressive attachment (a bad admit
-    request fails EREQUEST first).  The sharded prefill still raises
-    naming its item."""
+    request fails EREQUEST first).  The sharded prefill is ported too:
+    with a mesh its layer products run through the sharded kernel."""
     gen = GenerateService(loop=DecodeLoop(dim=8, device=CPU))
     closer(gen)
     c, done = Controller(), threading.Event()
@@ -1003,8 +1044,13 @@ def test_unported_fronts_raise_naming_their_item(closer):
         {"session": "absent", "kv_epoch": 0, "n_layers": 2, "max_tokens": 2})), None, done.set)
     assert done.is_set() and c.failed() and dec.sse_rows == 1
     assert c._progressive_attachment.content_type == "text/event-stream"
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PrefillService(store, dim=8, mesh=object(), device=CPU)
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    pf = PrefillService(store, dim=8, mesh=create_mesh((1, 2), devices=[CPU] * 2))
+    assert pf.device == CPU and pf._sharded is not None
+    assert [tuple(s.shape) for s in pf._w_dev.shards] == [(4, 8)] * 2
+    assert pf.prefill_sessions([("m", "mesh")])["m"]["prefill_executions"] == 1
+    assert pf._sharded.executions == pf._sharded.collective_merges == 3
 
 
 def test_entry_points_without_a_device_need_a_card(monkeypatch):

@@ -1,9 +1,13 @@
 """The port's sharded, replicated and live-resharded parameter server
 held against the JAX package's, on the CPU.
 
-The scenarios are those of tests/test_sharded_ps.py:300-500 (shard
-mapping, keyed Get/Put on one owning shard, the fan-out Forward, a dead
-shard under ``fail_limit``, ``scatter_param``), tests/test_replication.py:380-604
+The scenarios are those of tests/test_sharded_ps.py:59-500 (the
+in-mesh sharded store on a (1, 8) mesh: shards placed, one execution
+and one merge per batch, the result against the unsharded one, the
+collective sub-span, a chaos reset failing only its group, the
+servable-dim ceiling, plus ``Get`` of a sharded key and ``remesh``;
+shard mapping, keyed Get/Put on one owning shard, the fan-out Forward,
+a dead shard under ``fail_limit``, ``scatter_param``), tests/test_replication.py:380-604
 (RF=1, Put/Get/Delete, hedged reads, a leader killed mid-write-storm)
 and tests/test_resharding.py:414-763 (a membership flap mid-fan-out,
 live migration under load, an in-flight fan-out across CUTOVER, a
@@ -12,7 +16,9 @@ over each package's own servers, and the two results must be equal:
 keys, owners, moved-key sets and counters exactly, Forward ``y`` within
 1e-5·(|x| @ |W|) + 1e-6 per element (float32 products summed in
 another order).  The port's servers and channels are given
-``torch.device("cpu")``; inputs are numpy arrays from a seed.
+``torch.device("cpu")``, and its mesh lists it eight times (virtual
+chips) where the JAX package's runs on the conftest's eight virtual CPU
+devices; inputs are numpy arrays from a seed.
 
 The JAX package's sub-channels default to a 1000 ms timeout, which its
 first Put of a new shape (a compile) can overrun, so both packages'
@@ -179,7 +185,7 @@ def pk(pkg):
         Controller=Controller, ServerNode=ServerNode, ps=ps, span_db=span_db,
         EchoRequest=EchoRequest, str2endpoint=str2endpoint, set_flag=set_flag,
         start_ici=start_ici, start_tcp=start_tcp, shard_channel=shard_channel,
-        put=put, get=get, forward=forward, host=host, dev_kw=dev_kw,
+        put=put, get=get, forward=forward, host=host, dev_kw=dev_kw, Server=Server,
     )
 
 
@@ -941,3 +947,370 @@ def test_fanout_forward_across_a_live_reshard():
     for y_p, y_j in zip(ys_p, res["jax"][5]):
         assert_forward_close(y_p, ref, x, W)
         assert_forward_close(y_p, y_j.astype(np.float64), x, W)
+
+
+# ---------------------------------------------------------------------------
+# the in-mesh sharded store (batching/sharded.py over a (1, 8) mesh)
+# ---------------------------------------------------------------------------
+
+
+def mk(pkg):
+    """One package's in-mesh PS surface: (1, n) meshes, the service and
+    the single-request and batch Forward adapters."""
+    if pkg == "port":
+        from incubator_brpc_tpu_torch.chaos.plan import FaultPlan, FaultSpec
+        from incubator_brpc_tpu_torch.observability.span import Span, swap_current_span
+        from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+        from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoResponse
+        from incubator_brpc_tpu_torch.server.server import ServerOptions
+
+        def mesh(n):
+            return create_mesh((1, n), devices=[CPU] * n)
+
+        def shards(val):
+            return [s.numpy() for s in val.shards]
+    else:
+        import jax
+
+        from incubator_brpc_tpu.chaos.plan import FaultPlan, FaultSpec
+        from incubator_brpc_tpu.observability.span import Span, swap_current_span
+        from incubator_brpc_tpu.parallel.mesh import create_mesh
+        from incubator_brpc_tpu.protos.echo_pb2 import EchoResponse
+        from incubator_brpc_tpu.server.server import ServerOptions
+
+        def mesh(n):
+            return create_mesh((1, n), devices=jax.devices("cpu")[:n])
+
+        def shards(val):
+            return [np.asarray(s.data) for s in
+                    sorted(val.addressable_shards, key=lambda s: s.index[0].start or 0)]
+
+    P = pk(pkg)
+
+    def forward_rows(svc, keys_xs):
+        """One batch of Forwards (a key and x per row) through the batch
+        handler: [(failed, error_code, y)] per row."""
+        ctrls, reqs, resps = [], [], []
+        for key, x in keys_xs:
+            c = P.Controller()
+            c.request_attachment.append_user_data(np.asarray(x, np.float32).tobytes())
+            ctrls.append(c)
+            reqs.append(P.EchoRequest(message=key))
+            resps.append(EchoResponse())
+        P.ps.PsService.Forward.__batch_fn__(svc, ctrls, reqs, resps, lambda: None)
+        return [(c.failed(), c.error_code, None if c.failed() else np.frombuffer(
+            c.response_attachment.to_bytes(), np.float32).copy()) for c in ctrls]
+
+    return types.SimpleNamespace(
+        P=P, mesh=mesh, shards=shards, forward_rows=forward_rows,
+        FaultPlan=FaultPlan, FaultSpec=FaultSpec, Span=Span,
+        swap_current_span=swap_current_span, ServerOptions=ServerOptions,
+        EchoResponse=EchoResponse,
+    )
+
+
+def _put_param_shards(pkg):
+    M = mk(pkg)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    w = np.random.default_rng(4).standard_normal((64, 32)).astype(np.float32)
+    out = [svc.put_param("w", w), [s.shape for s in M.shards(svc._store["w"])]]
+    out += [svc.put_param("odd", np.ones((63, 32), np.float32)),
+            svc.put_param("vec", np.ones((64,), np.float32))]
+    plain = M.P.ps.PsService(**M.P.dev_kw)
+    out += [plain.shard_kernel is None, plain.put_param("w", w)]
+    return out, M.shards(svc._store["w"])
+
+
+def test_put_param_shards_eligible_matrices():
+    res = run_both(_put_param_shards)
+    assert res["port"][0] == res["jax"][0] == [True, [(8, 32)] * 8, False, False, True, False]
+    for a, b in zip(res["port"][1], res["jax"][1]):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_sharded_shards_are_copies_on_each_chip_device():
+    """Each chip's rows are a contiguous copy of their own (never a view
+    that keeps the whole W alive), charged once to ``ps.params`` as the
+    sum of the shards' bytes."""
+    from incubator_brpc_tpu_torch.models import parameter_server as ps_mod
+
+    M = mk("port")
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    w = torch.arange(64 * 16, dtype=torch.float32).reshape(64, 16)
+    before = ps_mod._PS_ACCT.live_bytes()
+    assert svc.put_param("w", w) is True
+    stored = svc._store["w"]
+    assert svc._hbm["w"] == (w.nbytes, 1) and stored.nbytes == w.nbytes
+    assert ps_mod._PS_ACCT.live_bytes() - before in (0, w.nbytes)  # 0: tracking off
+    for k, shard in enumerate(stored.shards):
+        assert shard.device == CPU and shard.is_contiguous()
+        assert shard.untyped_storage().nbytes() == 8 * 16 * 4
+        assert torch.equal(shard, w[8 * k:8 * (k + 1)])
+    svc.Delete(M.P.Controller(), M.P.EchoRequest(message="w"), M.EchoResponse(), lambda: None)
+    assert "w" not in svc._sharded_keys and "w" not in svc._hbm
+
+
+def _one_execution_per_batch(pkg, W, x):
+    M = mk(pkg)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    srv = M.P.Server(M.ServerOptions(enable_batching=True))
+    srv.add_service(svc)
+    assert srv.start(0) == 0
+    try:
+        svc.put_param("w", W)
+        ch = M.P.Channel(M.P.ChannelOptions(timeout_ms=30000))
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        c, _, _ = M.P.forward(ch, "w", x)  # warm (the JAX trace) outside the window
+        assert not c.failed(), c.error_text()
+        kern = svc.shard_kernel
+        e0, m0 = kern.executions, kern.collective_merges
+        b0 = srv.batcher("PsService.Forward").batches
+        res = [None] * 16
+        barrier = threading.Barrier(16, timeout=30)
+
+        def call(i):
+            barrier.wait()  # arrive together, inside one batching window
+            res[i] = M.P.forward(ch, "w", x)
+
+        ts = [threading.Thread(target=call, args=(i,)) for i in range(16)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        assert not any(t.is_alive() for t in ts)
+        batcher = srv.batcher("PsService.Forward")
+        batches = batcher.batches - b0
+        ys = []
+        for c, _, y in res:
+            assert not c.failed(), c.error_text()
+            ys.append(y)
+        ch.close()
+        return (batches, kern.executions - e0, kern.collective_merges - m0,
+                batcher.max_batch_seen, ys)
+    finally:
+        srv.stop()
+
+
+def test_sharded_forward_one_execution_one_merge_per_batch():
+    rng = np.random.default_rng(5)
+    W = rng.standard_normal((64, 48)).astype(np.float32)
+    x = rng.standard_normal(64).astype(np.float32)
+    ref = x.astype(np.float64) @ W.astype(np.float64)
+    res = run_both(_one_execution_per_batch, W, x)
+    for pkg, (batches, execs, merges, seen, ys) in res.items():
+        assert batches >= 1 and execs == merges == batches, (pkg, batches, execs, merges)
+        assert seen >= 2, f"{pkg}: nothing ever coalesced"
+        for y in ys:
+            assert_forward_close(y, ref, x, W)
+    for y_p, y_j in zip(res["port"][4], res["jax"][4]):
+        assert_forward_close(y_p, y_j.astype(np.float64), x, W)
+
+
+def _sharded_vs_plain(pkg, W, xs):
+    M = mk(pkg)
+    sharded = M.P.ps.PsService(mesh=M.mesh(8))
+    plain = M.P.ps.PsService(**M.P.dev_kw)
+    sharded.put_param("w", W)
+    plain.put_param("w", W)
+    out = []
+    for svc in (sharded, plain):
+        rows = M.forward_rows(svc, [("w", x) for x in xs])
+        assert not any(failed for failed, _, _ in rows)
+        out.append([y for _, _, y in rows])
+    return out, sharded.shard_kernel.executions
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sharded_forward_matches_unsharded_and_jax(seed):
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((64, 64)).astype(np.float32)
+    xs = rng.standard_normal((3, 64)).astype(np.float32)
+    res = run_both(_sharded_vs_plain, W, xs)
+    (ys_p, plain_p), execs_p = res["port"]
+    (ys_j, _), execs_j = res["jax"]
+    assert execs_p == execs_j == 1  # three rows, one batch, one execution
+    for x, y_p, y_plain, y_j in zip(xs, ys_p, plain_p, ys_j):
+        ref = x.astype(np.float64) @ W.astype(np.float64)
+        assert_forward_close(y_p, ref, x, W)
+        assert_forward_close(y_p, y_plain.astype(np.float64), x, W)
+        assert_forward_close(y_p, y_j.astype(np.float64), x, W)
+
+
+def _subspan(pkg):
+    M = mk(pkg)
+    M.P.set_flag("rpcz_max_spans_per_second", 1_000_000)
+    try:
+        svc = M.P.ps.PsService(mesh=M.mesh(8))
+        svc.put_param("w", np.random.default_rng(6).standard_normal((64, 32)).astype(np.float32))
+        root = M.Span.create_client("test", "shardspan")
+        prev = M.swap_current_span(root)
+        try:
+            svc.shard_kernel(svc._store["w"],
+                             np.random.default_rng(7).standard_normal((4, 64)).astype(np.float32))
+        finally:
+            M.swap_current_span(prev)
+            root.end(0)
+
+        def legs():
+            return [s for s in M.P.span_db().recent(300)
+                    if s.trace_id == root.trace_id and s.kind == "collective"]
+
+        _wait_for(legs)
+        found = legs()
+        return len(found), found[0].method, found[0].parent_span_id == root.span_id
+    finally:
+        M.P.set_flag("rpcz_max_spans_per_second", 500)
+
+
+def test_sharded_forward_leaves_collective_subspan():
+    assert both(_subspan) == (1, "psum_forward@chip", True)
+
+
+def _chaos_reset(pkg):
+    M = mk(pkg)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    rng = np.random.default_rng(8)
+    svc.put_param("w", rng.standard_normal((64, 32)).astype(np.float32))
+    svc.put_param("odd", rng.standard_normal((63, 32)).astype(np.float32))
+    plan = M.FaultPlan(
+        [M.FaultSpec("collective.merge", "reset", probability=1.0,
+                     match={"method": "PsService.Forward"})],
+        seed=11, name="merge-reset",
+    )
+    batch = [("w", np.ones(64)), ("odd", np.ones(63)), ("w", np.ones(64))]
+    M.P.injector.arm(plan)
+    try:
+        armed = [(failed, code) for failed, code, _ in M.forward_rows(svc, batch)]
+    finally:
+        M.P.injector.disarm()
+    after = [(failed, code) for failed, code, _ in M.forward_rows(svc, batch)]
+    return armed, after, svc.shard_kernel.executions
+
+
+def test_collective_merge_chaos_reset_fails_only_that_group():
+    armed, after, executions = both(_chaos_reset)
+    EINTERNAL = pk("port").errors.EINTERNAL
+    # the sharded group's two rows fail EINTERNAL; the single-chip group
+    # in the same batch executes; disarmed traffic recovers
+    assert armed == [(True, EINTERNAL), (False, 0), (True, EINTERNAL)]
+    assert after == [(False, 0)] * 3
+    assert executions == 1  # the reset batch never executed: no retry on one chip
+
+
+def _ceiling(pkg):
+    M = mk(pkg)
+    budget = 1 << 20  # 1 MB per chip, synthetic
+    d1 = M.P.ps.max_servable_dim(budget, 1)
+    d8 = M.P.ps.max_servable_dim(budget, 8)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    W = np.zeros((d8, d8), np.float32)
+    placed = svc.put_param("big", W)
+    per_chip = [s.nbytes for s in M.shards(svc._store["big"])]
+    return d1, d8, placed, per_chip, W.nbytes > budget
+
+
+def test_max_servable_dim_hbm_ceiling():
+    d1, d8, placed, per_chip, busts_one = both(_ceiling)
+    assert d8 >= 2 * d1 and placed and busts_one
+    assert len(per_chip) == 8 and max(per_chip) <= 1 << 20
+
+
+def _sharded_get(pkg, W):
+    M = mk(pkg)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    srv = M.P.Server()
+    srv.add_service(svc)
+    assert srv.start(0) == 0
+    try:
+        svc.put_param("w", W)
+        ch = M.P.Channel(M.P.ChannelOptions(timeout_ms=30000))
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        c, _ = M.P.get(ch, "w")
+        assert not c.failed(), c.error_text()
+        ch.close()
+        return c.response_attachment.to_bytes()
+    finally:
+        srv.stop()
+
+
+def test_get_of_a_sharded_key_is_the_logical_matrix():
+    W = np.random.default_rng(9).standard_normal((64, 24)).astype(np.float32)
+    assert both(_sharded_get, W) == W.tobytes()
+
+
+def test_put_of_a_device_tensor_over_ici_shards_it_and_get_assembles_it():
+    """A W that arrives by Put over ici:// (the fabric's fresh tensor)
+    is row-sharded on the mesh's chips; Get attaches the assembled W on
+    the service's device."""
+    M = mk("port")
+    svc = M.P.ps.PsService(mesh=M.mesh(4))
+    srv = M.P.Server()
+    srv.add_service(svc)
+    _chips["port"][0] += 1
+    chip = _chips["port"][0]
+    assert srv.start_ici(SLICE, chip, device=CPU) == 0
+    try:
+        W = torch.from_numpy(np.random.default_rng(10).standard_normal((32, 8)).astype(np.float32))
+        ch = M.P.Channel(M.P.ch_opts())
+        assert ch.init(f"ici://slice{SLICE}/chip{chip}") == 0
+        c, _ = M.P.put(ch, "w", W)
+        assert not c.failed(), c.error_text()
+        assert "w" in svc._sharded_keys
+        assert [tuple(s.shape) for s in svc._store["w"].shards] == [(8, 8)] * 4
+        c, _ = M.P.get(ch, "w")
+        assert not c.failed(), c.error_text()
+        got = c.response_attachment.device_arrays()
+        assert len(got) == 1 and torch.equal(got[0], W)
+        ch.close()
+    finally:
+        srv.stop()
+
+
+def _remesh(pkg, W, xs):
+    M = mk(pkg)
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    svc.put_param("w", W)
+    svc.put_param("blob", np.ones((63, 8), np.float32))  # never sharded
+    before = [y for _, _, y in M.forward_rows(svc, [("w", x) for x in xs])]
+    replaced = svc.remesh(M.mesh(4))
+    after = M.forward_rows(svc, [("w", x) for x in xs])
+    assert not any(failed for failed, _, _ in after)
+    kern = svc.shard_kernel
+    return (replaced, kern.n_shards(), [s.shape for s in M.shards(svc._store["w"])],
+            kern.executions, before, [y for _, _, y in after])
+
+
+def test_remesh_from_8_to_4_chips_keeps_serving():
+    rng = np.random.default_rng(11)
+    W = rng.standard_normal((64, 32)).astype(np.float32)
+    xs = rng.standard_normal((2, 64)).astype(np.float32)
+    res = run_both(_remesh, W, xs)
+    assert res["port"][:4] == res["jax"][:4] == (1, 4, [(16, 32)] * 4, 2)
+    for pkg in PKGS:
+        for ys in res[pkg][4:]:
+            for x, y in zip(xs, ys):
+                assert_forward_close(y, x.astype(np.float64) @ W.astype(np.float64), x, W)
+    for y_p, y_j, x in zip(res["port"][5], res["jax"][5], xs):
+        assert_forward_close(y_p, y_j.astype(np.float64), x, W)
+
+
+def test_remesh_to_one_chip_assembles_and_an_old_placement_still_runs():
+    """Down to one chip every sharded value is assembled on the
+    service's device and served by the single-chip kernel; a parameter
+    still placed on an older mesh runs on its own chips, never through
+    the new mesh."""
+    M = mk("port")
+    svc = M.P.ps.PsService(mesh=M.mesh(8))
+    W = np.random.default_rng(12).standard_normal((64, 16)).astype(np.float32)
+    svc.put_param("w", W)
+    old = svc._store["w"]
+    x = np.random.default_rng(13).standard_normal((1, 64)).astype(np.float32)
+    svc.shard_kernel.remesh(M.mesh(2))
+    y_old = svc.shard_kernel(old, x)
+    assert torch.allclose(y_old, torch.from_numpy(x @ W), rtol=1e-5, atol=1e-5)
+    assert svc.remesh(None) == 0 and svc.shard_kernel is None
+    assert isinstance(svc._store["w"], torch.Tensor) and not svc._sharded_keys
+    assert np.array_equal(svc._store["w"].numpy(), W)
+    (failed, _, y), = M.forward_rows(svc, [("w", x[0])])
+    assert not failed
+    assert_forward_close(y, x[0].astype(np.float64) @ W.astype(np.float64), x[0], W)
