@@ -150,7 +150,27 @@ file.  Phases, each fatal on failure:
              mesh at dim 6144, batch 256, 5 steps (the loss falls at
              every step, step 1 held to a float64 plain step, the median
              step time);
-12. times  — each kernel's time at the main path's shapes beside its
+12. witness — the analysis toolchain's runtime witnesses on the card,
+             in a child interpreter (this script with --witness-child)
+             that arms the lock witness and the transfer guard before
+             the port creates a lock: a seeded .item() of a CUDA tensor
+             must raise TransferWitnessError, and so must a hidden
+             bool() sync on the main thread and on a server worker
+             thread (the sync hook); then the 64 MB echo in fused and
+             pallas mode (launches per hop as in [echo]), PS Put/Get of
+             W at d = 6144 and 1 s of Forward at p = 8 with batching on
+             (one ps.forward-pull per batch), 16 cache SETs and GET hits
+             of 1 MiB device values over ici:// (no spill, no host view),
+             8 decode steps at the serve width (one decode.token-sums a
+             step), the sharded Forward over a (1, 4) virtual-chip mesh
+             and a PS Get of W over TLS/TCP with an Authenticator (one
+             iobuf.host-view a frame).  Fails on any violation, lock or
+             retrace contradiction.  Prints the child's launches per
+             kernel, the guard's overhead (the echo and the Forward point
+             armed against disarmed, in ABBA turns; "unresolved" when the
+             difference is inside the disarmed turns' spread) and the
+             phase's wall time with the card's name and power limit;
+13. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(): the whole-frame
              transmits and copy_blocks walked over distinct buffers (each
              frame cold in the 50 MB L2, as on the path) and run back to
@@ -168,7 +188,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 12 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 13 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -3606,6 +3626,542 @@ def phase_mesh(torch, T, ps_summary):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# [witness]: the analysis toolchain's two runtime witnesses, armed on the card
+# ---------------------------------------------------------------------------
+
+WITNESS_SLICE = 10  # ici://slice10/chip{0..3}: the child's servers
+WITNESS_ECHOES = 4  # per chunk mode, each checked
+WITNESS_TIMED = 24  # echoes per overhead turn
+WITNESS_FORWARD_S = 1.0  # seconds of Forward per overhead turn
+WITNESS_ABBA = 3  # ABBA rounds of the overhead turns
+WITNESS_CACHE_VALUES = 16
+WITNESS_DECODE_STEPS = 8
+WITNESS_TLS_GETS = 3
+WITNESS_FORWARD_P = 8
+# the seeded module the guard must refuse (written under an extra scope
+# root, so its call sites are guarded like the package's)
+WITNESS_SEEDED_SRC = '''\
+import threading
+
+from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+from incubator_brpc_tpu_torch.server.service import Service, rpc_method
+
+
+def pull(x):
+    return x.item()
+
+
+def hidden(x):
+    return bool(x.sum() > 0)
+
+
+class HiddenSync(Service):
+    """A handler that syncs without a wrapped spelling, on a server
+    worker thread: only the sync hook can see it."""
+
+    def __init__(self, x):
+        self.x = x
+        self.outcome = None
+
+    @rpc_method(EchoRequest, EchoResponse)
+    def Probe(self, controller, request, response, done):
+        try:
+            hidden(self.x)
+            self.outcome = ("not raised", threading.current_thread().name)
+        except Exception as e:  # noqa: BLE001 - the outcome is the probe's result
+            self.outcome = (type(e).__name__, threading.current_thread().name)
+        response.message = request.message
+        done()
+'''
+
+
+def witness_say(msg: str) -> None:
+    print(f"[witness] {msg}", flush=True)
+
+
+def witness_launches(T, base):
+    """Launches per kernel since the snapshot ``base`` of T.launches."""
+    return {k: v - base.get(k, 0) for k, v in T.launches.items()}
+
+
+def witness_teeth(dw, torch, dev, seeded):
+    """A seeded .item() of a device tensor, and a hidden sync on the main
+    thread and on a server worker thread: the outcome of each, for the
+    parent to hold (each must raise TransferWitnessError)."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server
+    from incubator_brpc_tpu_torch.server.service import ServiceStub
+
+    x = torch.ones(4, device=dev)
+    try:
+        seeded.pull(x)
+        item = "not raised"
+    except dw.TransferWitnessError as e:
+        item = "raised"
+        witness_say(f"teeth: a seeded .item() of a tensor on {dev} raised "
+                    f"TransferWitnessError ({str(e)[:60]}...)")
+    try:
+        seeded.hidden(x)
+        main = "not raised"
+    except dw.TransferWitnessError:
+        main = "raised"
+    svc = seeded.HiddenSync(x)
+    srv = Server()
+    srv.add_service(svc)
+    check(srv.start_ici(WITNESS_SLICE, 3, device=dev) == 0, "start_ici of the probe failed")
+    ch = Channel(ChannelOptions(timeout_ms=30000, ici_device=dev))
+    try:
+        check(ch.init(f"ici://slice{WITNESS_SLICE}/chip3") == 0, "probe channel init failed")
+        c = Controller()
+        ServiceStub(ch, seeded.HiddenSync).Probe(c, EchoRequest(message="probe"))
+        check(not c.failed(), f"probe failed: {c.error_text()}")
+    finally:
+        ch.close()
+        srv.stop()
+    worker, thread = svc.outcome
+    report = dw.cross_check()
+    syncs = [v for v in report["violations"] if v["kind"] == "sync"]
+    witness_say(f"sync hook (sync debug mode 'warn' once, showwarning hook): armed "
+                f"{report['sync_hook']}; a hidden sync (bool of a device tensor) on the "
+                f"main thread: {main}; on server worker thread {thread!r}: {worker}; "
+                f"{report['sync_warnings']} torch sync warnings seen, {len(syncs)} refused")
+    return {"item": item, "hook_armed": report["sync_hook"], "hidden_main": main,
+            "hidden_worker": worker, "worker_thread": thread,
+            "sync_warnings": report["sync_warnings"], "sync_refused": len(syncs)}
+
+
+def witness_echo(torch, T, dev, mb, pulls):
+    """The echo in fused and pallas mode: launches per hop as [echo]'s,
+    no host view.  Returns a closure timing one echo turn."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server
+
+    srv = Server()
+    srv.add_service(EchoService())
+    check(srv.start_ici(WITNESS_SLICE, 0, device=dev) == 0, "start_ici of the echo failed")
+    ch = Channel(ChannelOptions(timeout_ms=60000, ici_device=dev))
+    check(ch.init(f"ici://slice{WITNESS_SLICE}/chip0") == 0, "echo channel init failed")
+    stub = echo_stub(ch)
+    x0 = make_payload(torch, mb, torch.float32, SEED)
+    fabric = get_fabric()
+
+    def echo(x):
+        c = Controller()
+        c.timeout_ms = 60000
+        c.request_attachment.append_device(x)
+        stub.Echo(c, EchoRequest(message="bulk"))
+        check(not c.failed(), f"witness echo failed: {c.error_text()}")
+        (seg,) = c.response_attachment.device_segments()
+        return seg.array
+
+    counts = {}
+    for mode in ("fused", "pallas"):
+        fabric.chunk_mode = mode
+        views0, base = pulls("iobuf.host-view"), dict(T.launches)
+        for _ in range(WITNESS_ECHOES):
+            check(torch.equal(echo(x0), x0), f"witness {mode} echo changed the bytes")
+        counts[mode] = witness_launches(T, base)
+        hops = 2 * WITNESS_ECHOES
+        for k, v in counts[mode].items():
+            check(v == PER_HOP[mode][k] * hops,
+                  f"witness {mode}: {k} launched {v} times for {hops} hops, "
+                  f"expected {PER_HOP[mode][k]} per hop as in [echo]")
+        check(pulls("iobuf.host-view") == views0, f"witness {mode}: an ICI hop took a host view")
+    fabric.chunk_mode = "fused"
+    witness_say(f"echo {tuple(mb)} f32 over ici:// in fused and pallas mode, "
+                f"{WITNESS_ECHOES} each: launches {counts} (per hop as in [echo]); "
+                f"iobuf.host-view 0")
+
+    def turn():
+        ts = []
+        for _ in range(WITNESS_TIMED):
+            t0 = time.perf_counter()
+            echo(x0)
+            torch.cuda.synchronize(dev)
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e3
+
+    def close():
+        ch.close()
+        srv.stop()
+
+    return counts, turn, close
+
+
+def witness_ps(torch, T, dev, d, pulls, mesh=None):
+    """PS Put/Get of W over ici:// (one K1 a hop, no host view) and a
+    closed-loop Forward at p = WITNESS_FORWARD_P with batching on: one
+    ps.forward-pull per batch.  Over a mesh, one execution and one
+    merge per batch too.  Returns (figures, a Forward turn, close)."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    chip = 1 if mesh is None else 2
+    svc = PsService(device=dev) if mesh is None else PsService(mesh=mesh)
+    srv = Server(ServerOptions(enable_batching=True))
+    srv.add_service(svc)
+    check(srv.start_ici(WITNESS_SLICE, chip, device=dev) == 0, "start_ici of the PS failed")
+    ep = f"ici://slice{WITNESS_SLICE}/chip{chip}"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+    req = EchoRequest(message="w")
+    channels = []
+    for _ in range(4):
+        ch = Channel(ChannelOptions(timeout_ms=60000, ici_device=dev))
+        check(ch.init(ep) == 0, "PS channel init failed")
+        channels.append(ch)
+    stubs = [ps_stub(c) for c in channels]
+    what = "mesh" if mesh is not None else "ps"
+    views0, base = pulls("iobuf.host-view"), dict(T.launches)
+    c = Controller()
+    c.request_attachment.append_device(W)
+    stubs[0].Put(c, req)
+    check(not c.failed(), f"witness {what} Put failed: {c.error_text()}")
+    c = Controller()
+    stubs[0].Get(c, req)
+    check(not c.failed(), f"witness {what} Get failed: {c.error_text()}")
+    (seg,) = c.response_attachment.device_segments()
+    check(same_bytes(torch, seg.array, W), f"witness {what} Get returned other bytes")
+    hops = witness_launches(T, base)
+    check(hops["copy_csum_blocks"] == 2 and hops["copy_csum_staged"] == 0,
+          f"witness {what} Put + Get launched {hops}: expected one K1 per hop of W")
+    check(pulls("iobuf.host-view") == views0, f"witness {what}: Put/Get took a host view")
+    xs = np.random.RandomState(SEED).randn(64, d).astype(np.float32)
+    x_bytes = [x.tobytes() for x in xs]
+    ref = torch.from_numpy(xs).to(dev).double() @ W.double()
+    scale = torch.from_numpy(np.abs(xs)).to(dev).double() @ W.abs().double()
+    batcher = srv.batcher("PsService.Forward")
+    kern = svc.shard_kernel
+    closed_loop(stubs, req, x_bytes, 4, 0.2)  # warm
+    b0, f0 = batcher.batches, pulls("ps.forward-pull")
+    e0, m0 = (kern.executions, kern.collective_merges) if kern else (0, 0)
+    lats, ys, wall, _ = closed_loop(stubs, req, x_bytes, WITNESS_FORWARD_P, 1.0)
+    batches, fwd = batcher.batches - b0, pulls("ps.forward-pull") - f0
+    check(fwd == batches > 0, f"witness {what}: {fwd} ps.forward-pull for {batches} batches")
+    if kern is not None:
+        execs, merges = kern.executions - e0, kern.collective_merges - m0
+        check(execs == merges == batches, f"witness mesh: {execs} executions, {merges} "
+                                          f"merges for {batches} batches")
+    idx = torch.tensor([i for i, _ in ys], device=dev)
+    got = torch.from_numpy(np.frombuffer(bytearray(b"".join(y for _, y in ys)),
+                                         np.float32).reshape(len(ys), d)).to(dev)
+    bad, worst = past_f64(got, ref[idx], scale[idx])
+    check(bad == 0, f"witness {what}: {bad} Forward outputs off by up to {worst:.3g}")
+    qps = len(lats) / wall
+    witness_say(f"{what} W ({d}, {d}) f32 Put/Get over ici:// (K1 1 per hop, host view 0); "
+                f"Forward p{WITNESS_FORWARD_P} batching on: {qps:.1f} qps, {batches} batches "
+                f"= {fwd} ps.forward-pull" + (" = executions = merges" if kern else "")
+                + f"; max |y - ref| / (|x| @ |W|) {worst:.3g}")
+
+    def turn():
+        lats, _, wall, _ = closed_loop(stubs, req, x_bytes, WITNESS_FORWARD_P,
+                                       WITNESS_FORWARD_S)
+        return len(lats) / wall
+
+    def close():
+        for ch in channels:
+            ch.close()
+        srv.stop()
+
+    return {"qps": qps, "batches": batches, "forward_pulls": fwd}, turn, close, W
+
+
+def witness_cache(torch, T, dev, value, pulls):
+    """SETs of device values and GET hits over ici://: no spill, no
+    host view, one K1 a hop."""
+    from incubator_brpc_tpu_torch.cache import HBMCacheService, HBMCacheStore
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.protocols import redis as R
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    store = HBMCacheStore(64 << 20, device=dev)
+    srv = Server(ServerOptions(redis_service=HBMCacheService(store=store)))
+    check(srv.start_ici(WITNESS_SLICE, 4, device=dev) == 0, "start_ici of the cache failed")
+    ch = Channel(ChannelOptions(protocol="redis", timeout_ms=60000, ici_device=dev))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    vals = torch.randint(0, 256, (WITNESS_CACHE_VALUES, value), generator=g,
+                         dtype=torch.uint8, device=dev)
+
+    def rcall(*cmd):
+        req, resp, c = R.RedisRequest(), R.RedisResponse(), Controller()
+        req.add_command(*cmd)
+        ch.call_method(R.redis_method_spec(), c, req, resp)
+        check(not c.failed(), f"witness redis {cmd[0]} failed: {c.error_text()}")
+        return resp.reply(0)
+
+    try:
+        check(ch.init(f"ici://slice{WITNESS_SLICE}/chip4") == 0, "cache channel init failed")
+        base = dict(T.launches)
+        for i in range(WITNESS_CACHE_VALUES):
+            check(rcall("SET", b"w%02d" % i, vals[i]).value == "OK", "witness SET failed")
+        spills0, views0 = pulls("cache.host-spill"), pulls("iobuf.host-view")
+        for i in range(WITNESS_CACHE_VALUES):
+            got = rcall("GET", b"w%02d" % i).device_array()
+            check(got is not None and same_bytes(torch, got, vals[i]),
+                  "witness GET hit did not return the value's bytes")
+        spills = pulls("cache.host-spill") - spills0
+        views = pulls("iobuf.host-view") - views0
+        k1 = witness_launches(T, base)["copy_csum_blocks"]
+        check(spills == 0 and views == 0, f"witness cache: ICI GET hits took {spills} "
+                                          f"spills and {views} host views")
+        check(k1 == 2 * WITNESS_CACHE_VALUES,
+              f"witness cache: {k1} K1 for {2 * WITNESS_CACHE_VALUES} hops")
+    finally:
+        ch.close()
+        srv.stop()
+    witness_say(f"cache {WITNESS_CACHE_VALUES} SETs and GET hits of {value} B device values "
+                f"over ici://: cache.host-spill 0, iobuf.host-view 0, K1 1 per hop")
+    return {"spills": spills, "views": views}
+
+
+def witness_decode(torch, dev, dim, pulls):
+    """WITNESS_DECODE_STEPS decode steps at the serve cell's width: one
+    decode.token-sums pull per step."""
+    import threading as _threading
+
+    from incubator_brpc_tpu_torch.streaming.generate import DecodeLoop
+
+    loop = DecodeLoop(dim=dim, device=dev)
+    try:
+        s0, steps0 = pulls("decode.token-sums"), loop.steps
+        done, toks = _threading.Event(), []
+        loop.admit("witness", WITNESS_DECODE_STEPS, lambda t, r: toks.append(t),
+                   lambda r, ok: done.set())
+        check(done.wait(120), "witness decode did not finish")
+        sums, steps = pulls("decode.token-sums") - s0, loop.steps - steps0
+    finally:
+        loop.stop()
+    check(len(toks) == WITNESS_DECODE_STEPS and sums == steps == WITNESS_DECODE_STEPS,
+          f"witness decode: {len(toks)} tokens, {steps} steps, {sums} decode.token-sums")
+    witness_say(f"decode at dim {dim}: {steps} steps, {sums} decode.token-sums pulls")
+    return {"steps": steps, "token_sums": sums}
+
+
+def witness_tls(torch, dev, W, pulls):
+    """A PS Get of W over TLS/TCP with an Authenticator: one host view
+    per frame.  Needs the openssl CLI for the certificate."""
+    import tempfile
+
+    from incubator_brpc_tpu_torch.client.auth import Authenticator
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport import ssl_helper
+
+    d = tempfile.mkdtemp(prefix="witness-tls-")
+    cert, key = f"{d}/cert.pem", f"{d}/key.pem"
+    made = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+         "-out", cert, "-days", "2", "-subj", "/CN=localhost",
+         "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        capture_output=True, text=True, timeout=60)
+    check(made.returncode == 0, f"openssl could not make a certificate: {made.stderr[-300:]}")
+
+    class Token(Authenticator):
+        def generate_credential(self):
+            return "witness-token"
+
+        def verify_credential(self, auth_str, peer, context=None):
+            return 0 if auth_str == "witness-token" else 1
+
+    svc = PsService(device=dev)
+    svc.put_param("w", W)
+    srv = Server(ServerOptions(auth=Token(), ssl_options=ssl_helper.ServerSSLOptions(
+        default_cert=ssl_helper.CertInfo(certificate=cert, private_key=key))))
+    srv.add_service(svc)
+    check(srv.start(0) == 0, "the TLS server did not start")
+    ch = Channel(ChannelOptions(timeout_ms=60000, auth=Token(), ssl_options=(
+        ssl_helper.ChannelSSLOptions(ca_file=cert))))
+    want = W.cpu().numpy().tobytes()
+    try:
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "TLS channel init failed")
+        views0 = pulls("iobuf.host-view")
+        for _ in range(WITNESS_TLS_GETS):
+            c = Controller()
+            ps_stub(ch).Get(c, EchoRequest(message="w"))
+            check(not c.failed(), f"TLS Get failed: {c.error_text()}")
+            check(c.response_attachment.to_bytes() == want, "TLS Get returned other bytes")
+        views = pulls("iobuf.host-view") - views0
+    finally:
+        ch.close()
+        srv.stop()
+    check(views == WITNESS_TLS_GETS, f"witness TLS: {views} host views for "
+                                     f"{WITNESS_TLS_GETS} frames of W")
+    witness_say(f"TLS/TCP PS Get of W with an Authenticator, {WITNESS_TLS_GETS} frames: "
+                f"iobuf.host-view {views} (one per frame), bytes equal")
+    return {"frames": WITNESS_TLS_GETS, "views": views}
+
+
+def witness_child(device_name: str) -> int:
+    """The [witness] phase's child interpreter, on the card: both
+    witnesses armed before the port creates its locks, then every guarded
+    path.  Prints [witness] lines and, last, one WITNESS_RESULT JSON line
+    (with the child's launches per kernel, the overhead turns included)."""
+    import tempfile
+
+    from incubator_brpc_tpu_torch.analysis import device_witness as dw
+    from incubator_brpc_tpu_torch.analysis import witness as lw
+
+    faulthandler.dump_traceback_later(600, exit=True)
+    seeded_root = tempfile.mkdtemp(prefix="witness-seeded-")
+    pathlib.Path(seeded_root, "seeded_witness.py").write_text(WITNESS_SEEDED_SRC)
+    lw.enable()
+    dw.enable(extra_scopes=[seeded_root])
+    sys.path.insert(0, seeded_root)
+    import seeded_witness
+    import torch
+
+    from incubator_brpc_tpu_torch.ops import transfer as T
+
+    dev = torch.device(device_name)
+    check(dev.type == "cuda" and torch.cuda.is_available(),
+          f"the witness child runs on a CUDA device, not {dev}")
+    T.reset_launch_counts()
+
+    def pulls(key):
+        return dw.transfer_counts().get(key, 0)
+
+    t0 = time.perf_counter()
+    result = {"device": str(dev), "teeth": witness_teeth(dw, torch, dev, seeded_witness)}
+    dw.reset()  # the seeded refusals are the teeth, not the paths' record
+    echo_counts, echo_turn, echo_close = witness_echo(torch, T, dev, MAIN_SHAPE, pulls)
+    ps, fwd_turn, ps_close, W = witness_ps(torch, T, dev, PS_DIM, pulls)
+    result.update(echo=echo_counts, ps=ps,
+                  cache=witness_cache(torch, T, dev, CACHE_VALUE, pulls),
+                  decode=witness_decode(torch, dev, SERVE_DIM, pulls))
+    from incubator_brpc_tpu_torch.parallel.mesh import create_mesh
+
+    mesh_fig, _, mesh_close, _ = witness_ps(
+        torch, T, dev, PS_DIM, pulls, mesh=create_mesh((1, MESH_CHIPS), devices=[dev] * MESH_CHIPS))
+    mesh_close()
+    result["mesh"] = mesh_fig
+    result["tls"] = witness_tls(torch, dev, W, pulls)
+    report = dw.cross_check()
+    locks = lw.cross_check()
+    result.update(violations=report["violations"], scope_uses=report["scope_uses"],
+                  retrace=report["retrace_contradictions"], sync_warnings=report["sync_warnings"],
+                  lock_contradictions=locks["contradictions"], lock_sites=locks["witnessed_sites"],
+                  lock_edges=locks["checked"], lock_new_edges=locks["new_edges"])
+    witness_say(f"report: {len(report['violations'])} violations, "
+                f"{len(report['retrace_contradictions'])} retrace contradictions, scope uses "
+                f"{report['scope_uses']}, {report['sync_warnings']} torch sync warnings "
+                f"passed by the hook; lock witness {locks['witnessed_sites']} sites, "
+                f"{locks['checked']} mapped edges, {len(locks['new_edges'])} unmanifested, "
+                f"{len(locks['contradictions'])} contradictions")
+    check(not report["violations"], f"witness violations: {report['violations'][:3]}")
+    check(not locks["contradictions"], f"lock contradictions: {locks['contradictions'][:3]}")
+    check(not report["retrace_contradictions"],
+          f"retrace contradictions: {report['retrace_contradictions'][:3]}")
+    result["paths_s"] = time.perf_counter() - t0
+    # the guard's cost: the same echo and Forward point, armed against
+    # disarmed, in turns (ABBA WITNESS_ABBA times, after one warm turn);
+    # the lock witness stays on in every turn
+    overhead = {"echo_ms": {"armed": [], "disarmed": []},
+                "forward_qps": {"armed": [], "disarmed": []}}
+    echo_turn()
+    fwd_turn()
+    for armed in (True, False, False, True) * WITNESS_ABBA:
+        if armed:
+            dw.enable(extra_scopes=[seeded_root])
+        else:
+            dw.disable()
+        side = "armed" if armed else "disarmed"
+        overhead["echo_ms"][side].append(echo_turn())
+        overhead["forward_qps"][side].append(fwd_turn())
+    check(dw.enabled() and not dw.cross_check()["violations"],
+          "the overhead turns recorded a violation")
+    echo_close()
+    ps_close()
+    result["overhead"] = overhead
+    result["launches"] = dict(T.launches)
+    result["child_s"] = time.perf_counter() - t0
+    print("WITNESS_RESULT " + json.dumps(result, default=repr), flush=True)
+    return 0
+
+
+def phase_witness(torch, smi):
+    """[witness]: the child arms the lock witness and the transfer guard
+    before the port creates its locks, proves the guard's teeth on the
+    card and drives the echo, PS, cache, decode, mesh and TLS paths;
+    this side checks its report.  Returns the report."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--witness-child",
+         str(card(torch))],
+        capture_output=True, text=True, timeout=900,
+    )
+    for line in proc.stdout.splitlines():
+        if line.startswith("[witness]"):
+            print(line)
+    check(proc.returncode == 0, f"the witness child exited {proc.returncode}; its stdout "
+                                f"ends:\n{proc.stdout[-2000:]}\nits stderr ends:\n"
+                                f"{proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("WITNESS_RESULT ")]
+    check(len(lines) == 1, "the witness child printed no result")
+    r = json.loads(lines[0][len("WITNESS_RESULT "):])
+    teeth = r["teeth"]
+    check(teeth["item"] == "raised", f"the guard did not refuse the seeded .item(): {teeth}")
+    check(teeth["hook_armed"] and teeth["hidden_main"] == "raised",
+          f"the sync hook did not refuse a hidden sync on the main thread: {teeth}")
+    check(teeth["hidden_worker"] == "TransferWitnessError",
+          f"the sync hook did not refuse a hidden sync on a server worker thread: {teeth}")
+    check(teeth["sync_warnings"] > 0 and teeth["sync_refused"] >= 2 and r["sync_warnings"] > 0,
+          f"the sync hook saw no torch sync warning: teeth {teeth}, paths {r['sync_warnings']}")
+    check(not r["violations"] and not r["lock_contradictions"] and not r["retrace"],
+          "the witness child reported violations or contradictions")
+    check("cache.host-spill" not in r["scope_uses"], f"a spill: {r['scope_uses']}")
+    check(r["cache"] == {"spills": 0, "views": 0}, f"ICI cache hits pulled: {r['cache']}")
+    for path in ("ps", "mesh"):
+        check(r[path]["forward_pulls"] == r[path]["batches"] > 0,
+              f"{path}: {r[path]['forward_pulls']} pulls for {r[path]['batches']} batches")
+    check(r["decode"]["token_sums"] == r["decode"]["steps"] == WITNESS_DECODE_STEPS,
+          f"decode: {r['decode']}")
+    check(r["tls"]["views"] == r["tls"]["frames"] == WITNESS_TLS_GETS, f"TLS: {r['tls']}")
+    hops = 2 * WITNESS_ECHOES
+    for mode, counts in r["echo"].items():
+        check(counts == {k: v * hops for k, v in PER_HOP[mode].items()},
+              f"witness {mode} echo launched {counts}, not [echo]'s per hop")
+    secs = time.perf_counter() - t0
+
+    def overhead(name, unit, fmt):
+        """armed against disarmed, as medians; 'unresolved' when the
+        difference is inside the disarmed turns' own spread"""
+        armed, disarmed = (r["overhead"][name][s] for s in ("armed", "disarmed"))
+        a, b = statistics.median(armed), statistics.median(disarmed)
+        diff, spread = 100 * (a / b - 1), 100 * (max(disarmed) - min(disarmed)) / b
+        verdict = "resolved" if abs(diff) > spread else "unresolved"
+        return (f"{a:{fmt}} {unit} armed, {b:{fmt}} disarmed ({diff:+.1f}%; the disarmed "
+                f"turns spread {spread:.1f}%: {verdict})")
+
+    turns = 2 * WITNESS_ABBA
+    print(f"[witness] guard overhead on {smi}: 64 MB fused echo "
+          f"{overhead('echo_ms', 'ms', '.3f')}; PS Forward p{WITNESS_FORWARD_P} batching on "
+          f"{overhead('forward_qps', 'qps', '.1f')} (medians of {turns} turns each, "
+          f"ABBA x{WITNESS_ABBA}, {WITNESS_TIMED} echoes or {WITNESS_FORWARD_S} s a turn; "
+          f"the lock witness on in every turn)")
+    print(f"[witness] lock witness: {r['lock_sites']} sites, {r['lock_edges']} mapped edges, "
+          f"0 contradictions; unmanifested (not in lock_order.json, none contradicting it): "
+          + ("; ".join(f"{e['edge']} x{e['count']}" for e in r["lock_new_edges"]) or "none"))
+    print(f"[witness] phase {secs:.1f} s wall on {smi} (child {r['child_s']:.1f} s, its "
+          f"guarded paths {r['paths_s']:.1f} s)")
+    return r
+
+
 def profile_windows(torch, fn, what, kernel=None, windows: int = 3, tries: int = 8):
     """Up to ``windows`` profiler windows over fn() that saw CUDA work
     (those whose name holds ``kernel``, or any), as (busy_us, by_name):
@@ -3829,9 +4385,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", metavar="ROOT",
                     help="only the transmit times, for the package of the checkout at ROOT")
+    ap.add_argument("--witness-child", metavar="DEVICE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.times is not None:
         return times_main(args.times)
+    if args.witness_child is not None:  # [witness]'s child: arms before torch loads
+        return witness_child(args.witness_child)
     import torch
 
     if not torch.cuda.is_available():
@@ -3862,13 +4421,15 @@ def main() -> int:
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
     http_counts, http_trace = phase_http(torch, T)
     mesh_counts, _ = phase_mesh(torch, T, ps_summary)
+    witness = phase_witness(torch, smi)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
              cluster_counts, http_counts, mesh_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
-          f"http {http_counts}; mesh {mesh_counts}")
+          f"http {http_counts}; mesh {mesh_counts}; witness (child, its whole run) "
+          f"{witness['launches']}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),
                     ("http", http_counts), ("mesh", mesh_counts)]:
         check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")

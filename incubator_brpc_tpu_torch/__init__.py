@@ -38,13 +38,6 @@ def _lazy(name):
     return importlib.import_module(name)
 
 
-# re-exports not ported yet → their ROADMAP.md queue 1 item
-_UNPORTED = {
-    "Authenticator": 20,
-    "AuthContext": 20,
-}
-
-
 def __getattr__(name):
     # lazy imports keep `import incubator_brpc_tpu_torch` light (no torch)
     mapping = {
@@ -53,6 +46,8 @@ def __getattr__(name):
         "Channel": ("incubator_brpc_tpu_torch.client.channel", "Channel"),
         "ChannelOptions": ("incubator_brpc_tpu_torch.client.channel", "ChannelOptions"),
         "Controller": ("incubator_brpc_tpu_torch.client.controller", "Controller"),
+        "Authenticator": ("incubator_brpc_tpu_torch.client.auth", "Authenticator"),
+        "AuthContext": ("incubator_brpc_tpu_torch.client.auth", "AuthContext"),
         "batching": ("incubator_brpc_tpu_torch.batching", None),
         "BatchPolicy": ("incubator_brpc_tpu_torch.batching.policy", "BatchPolicy"),
         "PsService": ("incubator_brpc_tpu_torch.models.parameter_server", "PsService"),
@@ -64,8 +59,4 @@ def __getattr__(name):
     if name in mapping:
         mod, attr = mapping[name]
         return _lazy(mod) if attr is None else getattr(_lazy(mod), attr)
-    if name in _UNPORTED:
-        from incubator_brpc_tpu_torch.unported import unported
-
-        unported(name, _UNPORTED[name])
     raise AttributeError(name)

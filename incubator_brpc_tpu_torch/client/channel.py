@@ -10,8 +10,8 @@ JAX package's, with ``ici_device`` a ``torch.device``; a cluster
 channel's client ICI port lives on it too.
 
 Not carried over yet, each raising NotImplementedError when asked for:
-TLS (ROADMAP.md queue 1 item 12), and the native C++ connection type
-and its submission ring (``call_many``, item 22).
+the native C++ connection type and its submission ring (``call_many``,
+ROADMAP.md queue 1 item 22).
 """
 
 from __future__ import annotations
@@ -56,7 +56,9 @@ class ChannelOptions:
     # same-device, transmitted through the copy+checksum kernels to)
     # that device — the full two-hop data plane.
     ici_device: object = None
-    # TLS options (not ported yet)
+    # TLS: a transport/ssl_helper.ChannelSSLOptions enables SSL on every
+    # connection this channel opens (reference ChannelOptions.mutable_ssl_options,
+    # channel.h; handshake in transport/socket.py Socket.connect)
     ssl_options: object = None
 
 
@@ -74,6 +76,7 @@ class Channel:
         self._latency_lock = threading.Lock()
         self._init_done = False
         self._ici_client_port = None
+        self._ssl_ctx = None  # built once from options.ssl_options
 
     # ---- init (channel.h:160-183) ------------------------------------------
     def init(self, naming_url: str, lb_name: Optional[str] = None) -> int:
@@ -86,8 +89,6 @@ class Channel:
             log_error("unknown protocol %r", self.options.protocol)
             return errors.EREQUEST
         self._resolve_connection_type()
-        if self.options.ssl_options is not None:
-            unported("TLS (ssl_options)", 12)
         # single-endpoint forms: host:port, unix:path, ici://slice/chip
         # (an ici:// URL names ONE chip; a cluster needs lb_name + a
         # naming service URL like file:// list:// tpu://)
@@ -178,7 +179,7 @@ class Channel:
             self.options.connection_type,
             self.options.connect_timeout_ms / 1000.0,
             controller,
-            ssl_params=None,
+            ssl_params=self._ssl_params(),
         )
         return err, sid, None
 
@@ -213,11 +214,36 @@ class Channel:
             lb.close()
 
     def _signature(self) -> str:
-        return f"{self.options.protocol}:{self.options.connection_group}"
+        # the ssl marker keeps TLS and plaintext channels — and channels
+        # with DIFFERENT TLS configs (verification, client certs) — from
+        # sharing a connection (reference hashes the full
+        # ChannelSSLOptions into the SocketMapKey's ChannelSignature)
+        ssl_mark = ""
+        if self.options.ssl_options is not None:
+            import hashlib
+
+            ssl_mark = (
+                ":ssl:"
+                + hashlib.md5(
+                    repr(self.options.ssl_options).encode()
+                ).hexdigest()[:10]
+            )
+        return f"{self.options.protocol}:{self.options.connection_group}{ssl_mark}"
 
     def _ssl_params(self):
-        """No TLS connection parameters: ``ssl_options`` raises at init."""
-        return None
+        """(SSLContext, sni_hostname) or None; context built once."""
+        opts = self.options.ssl_options
+        if opts is None:
+            return None
+        if self._ssl_ctx is None:
+            with self._latency_lock:
+                if self._ssl_ctx is None:
+                    from incubator_brpc_tpu_torch.transport.ssl_helper import (
+                        make_client_context,
+                    )
+
+                    self._ssl_ctx = make_client_context(opts)
+        return (self._ssl_ctx, opts.sni_name)
 
     def _on_rpc_end(self, controller):
         """Per-RPC bookkeeping: the latency recorder + LB feedback

@@ -44,6 +44,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
 from incubator_brpc_tpu_torch.metrics.multi_dimension import MultiDimension
 from incubator_brpc_tpu_torch.metrics.passive_status import PassiveStatus, Status
 from incubator_brpc_tpu_torch.metrics.reducer import Adder
@@ -466,7 +467,8 @@ def device_capture(seconds: float) -> dict:
                     if cuda:
                         # kernels enqueued inside the window finish
                         # before the profiler collects its device events
-                        torch.cuda.synchronize()
+                        with allowed_transfer("profiler.capture-sync"):
+                            torch.cuda.synchronize()
                     prof.stop()
                     prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
                     kernels = _cuda_kernels(prof)

@@ -57,6 +57,7 @@ import struct
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
 from incubator_brpc_tpu_torch.chaos import injector as _chaos
 from incubator_brpc_tpu_torch.observability.span import Span
 from incubator_brpc_tpu_torch.utils.segmentation import (
@@ -243,17 +244,14 @@ def _plan_frame(frame: IOBuf, src, dst):
                 )
 
                 def produce(host=host, event=event):
-                    from incubator_brpc_tpu_torch.analysis.device_witness import (
-                        allowed_transfer,
-                    )
-
                     # the DCN bridge IS the device/host boundary: the
                     # segment must become contiguous host bytes to hit
                     # the socket (manifested as dcn.wire)
                     with allowed_transfer("dcn.wire"):
                         if event is not None:
                             event.synchronize()
-                    return chunk_buffer(host.numpy(), _WIRE_CHUNK)
+                        wire = host.numpy()
+                    return chunk_buffer(wire, _WIRE_CHUNK)
 
                 producers.append(produce)
                 continue
@@ -301,8 +299,7 @@ def _warm_bulk_path():
         import torch
 
         for dev in devices:
-            torch.empty(8, device=dev)
-            torch.cuda.synchronize(dev)
+            torch.empty(8, device=dev)  # the context, created synchronously
         torch.empty(_WIRE_CHUNK, dtype=torch.uint8, pin_memory=True)
 
 
@@ -669,7 +666,10 @@ class _BridgeConn:
                 import torch
 
                 pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-                buf = pinned.numpy()
+                # the socket fills the pinned staging buffer through a
+                # host view of it: the wire boundary, inbound
+                with allowed_transfer("dcn.wire"):
+                    buf = pinned.numpy()
             else:
                 # np.empty skips the memset a bytearray(n) pays; every
                 # byte is overwritten by recv_into anyway

@@ -9,8 +9,8 @@ device.  One port speaks every registered protocol.
 Micro-batching (``enable_batching``, ``batching/``), the builtin
 observability pages (``builtin/``, on the same port or behind
 ``internal_port``), rpc_dump sampling and trackme are carried over.
-Not carried over yet, each raising NotImplementedError when asked for:
-TLS (ROADMAP.md queue 1 item 12) and the native C++ engine (item 22).
+Not carried over yet, raising NotImplementedError when asked for: the
+native C++ engine (ROADMAP.md queue 1 item 22), with or without TLS.
 """
 
 from __future__ import annotations
@@ -108,9 +108,8 @@ class ServerOptions:
     native_engine: bool = False
     # TLS: a transport/ssl_helper.ServerSSLOptions serves every accepted
     # connection over SSL (reference ServerOptions.mutable_ssl_options;
-    # handshake per-connection in transport/acceptor.py). Incompatible
-    # with native_engine (the C++ engine is plaintext) — ssl wins and
-    # the server falls back to the Python transport.
+    # handshake per-connection in transport/acceptor.py). native_engine
+    # is not ported and raises with or without it.
     ssl_options: object = None
     # SIGTERM/SIGINT → stop(closewait_ms=graceful_quit_closewait_ms)
     # (reference -graceful_quit_on_sigterm, server.cpp signal hook).
@@ -148,6 +147,7 @@ class Server:
         self._running = False
         self._lock = threading.Lock()
         self._rpc_dump_ctx = None
+        self._ssl_server_ctx = None  # built at start from options.ssl_options
         self._session_local_pool = []  # reusable session-local objects
         self._session_local_lock = threading.Lock()
         self._thread_local_store = threading.local()
@@ -379,8 +379,6 @@ class Server:
         # warm the runtime (bthread_setconcurrency, server.cpp:953-961)
         if self.options.num_threads:
             get_task_control()
-        if self.options.ssl_options is not None:
-            unported("TLS (ssl_options)", 12)
         if self.options.native_engine:
             unported("the native C++ engine (native_engine)", 22)
         if self.options.has_builtin_services:
@@ -392,6 +390,19 @@ class Server:
         for status in self._method_status.values():
             status.expose()
         self._init_batchers()
+        self._ssl_server_ctx = None
+        if self.options.ssl_options is not None:
+            from incubator_brpc_tpu_torch.transport.ssl_helper import (
+                make_server_context,
+            )
+
+            try:
+                self._ssl_server_ctx = make_server_context(
+                    self.options.ssl_options
+                )
+            except (OSError, ValueError) as e:
+                log_error("server SSL context failed: %r", e)
+                return -1
         try:
             if ep.scheme == "uds":
                 fd = _pysocket.socket(_pysocket.AF_UNIX, _pysocket.SOCK_STREAM)

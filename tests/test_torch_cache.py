@@ -299,11 +299,22 @@ def test_store_without_a_device_needs_a_card(monkeypatch):
 
 
 def test_cache_channel_is_not_ported_yet():
-    """CacheChannel itself is ported (tests/test_torch_cluster.py); what
-    is not is Channel TLS, which raises naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CacheChannel("list://127.0.0.1:1",
-                      options=PChannelOptions(ssl_options=object(), ici_device=torch.device("cpu")))
+    """CacheChannel is ported (tests/test_torch_cluster.py), and so is
+    Channel TLS now: a CacheChannel with ssl_options builds as the JAX
+    package's does, its nodes' channels keyed apart from plaintext ones
+    (tests/test_torch_secure.py runs TLS calls)."""
+    from incubator_brpc_tpu_torch.transport.ssl_helper import ChannelSSLOptions
+
+    cc = CacheChannel("list://127.0.0.1:1", options=PChannelOptions(
+        ssl_options=ChannelSSLOptions(), ici_device=torch.device("cpu")))
+    try:
+        plain = CacheChannel("list://127.0.0.1:1",
+                             options=PChannelOptions(ici_device=torch.device("cpu")))
+        assert ":ssl:" in cc._channel._signature()
+        assert cc._channel._signature() != plain._channel._signature()
+        plain.close()
+    finally:
+        cc.close()
 
 
 def test_protocol_device_checks_accept_tensors_unedited():

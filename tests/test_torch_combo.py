@@ -584,19 +584,28 @@ def test_stream_failure_notice_follows_the_last_batch():
 
 # copied module -> the lines (1-based) whose comment was reworded
 COPIED = {
+    "analysis/__init__.py": {3, 5, 6, 30},
+    "analysis/findings.py": set(),
+    "analysis/inventory.py": set(),
+    "analysis/lockgraph.py": set(),
+    "analysis/manifest.py": {143},
     "builtin/__init__.py": {917},
     "builtin/flamegraph.py": {5},
     "client/combo.py": {15, 165, 779},
+    "client/auth.py": set(),
     "client/naming_remote.py": set(),
     "observability/cluster.py": {4},
     "observability/trace.py": set(),
     "observability/trackme.py": set(),
     "protos/trackme_pb2.py": set(),
+    "runtime/fd.py": set(),
     "serialization/__init__.py": set(),
     "serialization/json2pb.py": set(),
+    "serialization/mcpack.py": set(),
     "tools/__init__.py": set(),
     "tools/rpc_view.py": set(),
     "tools/task_stacks.py": set(),
+    "utils/timeio.py": set(),
 }
 
 # copied modules that carry a fix the JAX package lacks (ROADMAP.md queue
@@ -605,7 +614,12 @@ COPIED = {
 # http.py: a progressive body closes its connection at its end (and the
 # comment at JAX :799 reworded); tpu_std.py, rpc_dump.py, rpc_replay.py:
 # a dump sample keeps its frame's attachment size, and a replay sends it.
+# analysis/invariants.py: chaos-site-test counts only tests/test_torch_*.py
+# (and the comment at JAX :17 reworded); analysis/witness.py: the state
+# lock is reentrant (and the docstring at JAX :21-22 names the plugin).
 DIVERGED = {
+    "analysis/invariants.py": [("replace", 16, 17, 16, 17), ("replace", 83, 84, 83, 87)],
+    "analysis/witness.py": [("replace", 20, 22, 20, 22), ("replace", 44, 45, 44, 47)],
     "protocols/http.py": [("insert", 242, 242, 242, 243), ("insert", 255, 255, 256, 257),
                           ("insert", 257, 257, 259, 269), ("insert", 267, 267, 279, 286),
                           ("insert", 726, 726, 745, 754), ("replace", 798, 799, 826, 827)],

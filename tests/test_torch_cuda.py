@@ -485,3 +485,77 @@ def test_device_capture_trace_names_k1(cuda_device):
     finally:
         stop.set()
         srv.stop()
+
+
+def test_transfer_guard_refuses_a_seeded_pull_of_a_cuda_tensor(cuda_device, tmp_path):
+    """The guard's teeth on the card, in a child interpreter: a seeded
+    module under an extra scope calls .item() on a CUDA tensor outside
+    any allow scope and gets TransferWitnessError; the same pull inside
+    a manifested scope passes.  A hidden sync (``bool`` of a CUDA
+    tensor, which no wrapper sees) is caught by the sync hook, on the
+    main thread and on another thread."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    (tmp_path / "seeded_cuda.py").write_text(textwrap.dedent("""\
+        from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
+
+
+        def pull(x):
+            return x.item()
+
+
+        def hidden(x):
+            return bool(x > 0)
+
+
+        def pull_scoped(x):
+            with allowed_transfer("decode.token-sums"):
+                return x.item()
+    """))
+    code = textwrap.dedent(f"""\
+        import json, sys, threading
+        sys.path.insert(0, {root!r})
+        from incubator_brpc_tpu_torch.analysis import device_witness as dw
+        dw.enable(extra_scopes=[{str(tmp_path)!r}])
+        sys.path.insert(0, {str(tmp_path)!r})
+        import torch
+        import seeded_cuda as sc
+        x = torch.ones(1, device="cuda:0")
+        out = {{}}
+        for name in ("pull", "hidden"):
+            try:
+                getattr(sc, name)(x)
+                out[name] = False
+            except dw.TransferWitnessError:
+                out[name] = True
+        def on_thread():
+            try:
+                sc.hidden(x)
+                out["hidden_thread"] = False
+            except dw.TransferWitnessError:
+                out["hidden_thread"] = True
+        t = threading.Thread(target=on_thread)
+        t.start()
+        t.join()
+        out["scoped"] = sc.pull_scoped(x)
+        out["report"] = dw.cross_check()
+        print("REPORT " + json.dumps(out, default=repr))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("REPORT ")][-1][len("REPORT "):])
+    assert out["pull"] is True and out["scoped"] == 1.0
+    assert out["report"]["sync_hook"] is True
+    kinds = [v["kind"] for v in out["report"]["violations"]]
+    assert "transfer" in kinds
+    # the sync hook: a bool() of a CUDA tensor syncs inside torch's C++
+    assert out["hidden"] is True and "sync" in kinds, out
+    assert out["hidden_thread"] is True, out
+    assert sum(k == "sync" for k in kinds) >= 2, out

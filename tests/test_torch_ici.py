@@ -367,31 +367,34 @@ def test_unported_branches_raise_not_implemented(tmp_path):
     ch = Channel()
     assert ch.init("list://127.0.0.1:1,127.0.0.1:2", "rr") == 0
     ch.close()
-    # the native submission ring and the native engine are item 22,
-    # Channel TLS item 12
+    # the native submission ring and the native engine are item 22;
+    # Channel TLS is ported (tests/test_torch_secure.py)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 22"):
         ch.call_many(None, [])
     with pytest.raises(NotImplementedError, match="item 22"):
         ch.submission_ring()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Channel(ChannelOptions(ssl_options=object())).init("127.0.0.1:1")
+    from incubator_brpc_tpu_torch.transport.ssl_helper import ChannelSSLOptions
+
+    tls = Channel(ChannelOptions(ssl_options=ChannelSSLOptions()))
+    assert tls.init("127.0.0.1:1") == 0
+    tls.close()
     with pytest.raises(NotImplementedError, match="item 22"):
         Channel(ChannelOptions(connection_type="native")).init("127.0.0.1:1")
-    # the combo channels are ported and exported as the JAX package
-    # exports them; the authenticator is item 20
+    # the combo channels and the authenticator are ported and exported
+    # as the JAX package exports them
     import incubator_brpc_tpu_torch as port
-    from incubator_brpc_tpu_torch.client import combo
+    from incubator_brpc_tpu_torch.client import auth, combo
 
     assert port.ParallelChannel is combo.ParallelChannel
     assert port.SelectiveChannel is combo.SelectiveChannel
     assert port.PartitionChannel is combo.PartitionChannel
-    for name in ("Authenticator", "AuthContext"):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            getattr(port, name)
+    assert port.Authenticator is auth.Authenticator
+    assert port.AuthContext is auth.AuthContext
     with pytest.raises(NotImplementedError, match="item 22"):
         Server(ServerOptions(native_engine=True)).start(0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Server(ServerOptions(ssl_options=object())).start(0)
+    # TLS does not make the native engine ported: it still raises
+    with pytest.raises(NotImplementedError, match="item 22"):
+        Server(ServerOptions(native_engine=True, ssl_options=object())).start(0)
     # rpc_dump sampling and internal_port are ported: both start
     srv = Server(ServerOptions(rpc_dump_dir=str(tmp_path / "dump"), internal_port=0))
     srv.add_service(EchoService())
@@ -563,6 +566,15 @@ step, params, xx = make_training_step(create_mesh((2, 2), devices=[cpu] * 4), di
 params, loss = step(params, xx)
 params, xx = convert.training_state_from_reference(
     {k: v.full().numpy() for k, v in params.items()}, xx.full().numpy(), mesh)
+from incubator_brpc_tpu_torch.analysis import device_witness, pytest_plugin, witness
+from incubator_brpc_tpu_torch.client.auth import Authenticator, AuthContext
+from incubator_brpc_tpu_torch.runtime import fd
+from incubator_brpc_tpu_torch.serialization import mcpack
+from incubator_brpc_tpu_torch.tools import check
+from incubator_brpc_tpu_torch.utils import timeio
+assert not check.run_check(invariants=False)["violations"]
+device_witness.enable(); device_witness.disable()
+assert mcpack.loads(mcpack.dumps({"k": [1, "v"]})) == {"k": [1, "v"]}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))
