@@ -150,7 +150,29 @@ file.  Phases, each fatal on failure:
              mesh at dim 6144, batch 256, 5 steps (the loss falls at
              every step, step 1 held to a float64 plain step, the median
              step time);
-12. witness — the analysis toolchain's runtime witnesses on the card,
+12. native — the C++ engine (incubator_brpc_tpu_torch/native/, built
+             with g++ and gcc at first use, beside the nvcc builds; the
+             call boundary, fastcall or ctypes, printed): rpc_press
+             --native's 4 KB echo for 2 s against a native server, the
+             Python API's sync echo over connection_type="native", a
+             call_many window of 32 against 32 per-call calls (every
+             reply equal to its request); PsService at d = 6144 on the
+             card behind Server(native_engine=True, enable_batching=True)
+             over TCP: W's bytes Put and Got back, Forward at p = 1 off and
+             p = 32 on from async callers on one native connection (qps,
+             p50, p99, device busy, beside [ps]; every y held to float64
+             as [ps] holds it; uploads = executions = ps.forward-pull =
+             batches; the frames per engine dispatch and the batch
+             sizes), a call_many window of 32 Gets of device-resident
+             (64, 6144) f32 values batched (max_batch_seen >= 16, at
+             most 2 batches a window, every value's bytes equal) against
+             32 per-call Gets; four native shard servers behind
+             sharded_ps_channel, a window of 64 keyed Gets crossing into C
+             once per shard; one port answering HTTP and redis in C and
+             by the Python fallback; a native.srv_write short-write plan
+             under which every call ends once, answered or failed with an
+             ERPC code;
+13. witness — the analysis toolchain's runtime witnesses on the card,
              in a child interpreter (this script with --witness-child)
              that arms the lock witness and the transfer guard before
              the port creates a lock: a seeded .item() of a CUDA tensor
@@ -163,14 +185,15 @@ file.  Phases, each fatal on failure:
              of 1 MiB device values over ici:// (no spill, no host view),
              8 decode steps at the serve width (one decode.token-sums a
              step), the sharded Forward over a (1, 4) virtual-chip mesh
-             and a PS Get of W over TLS/TCP with an Authenticator (one
-             iobuf.host-view a frame).  Fails on any violation, lock or
+             a PS Get of W over TLS/TCP with an Authenticator (one
+             iobuf.host-view a frame) and a native-engine Forward loop at
+             p = 8 with batching on (one ps.forward-pull per batch).  Fails on any violation, lock or
              retrace contradiction.  Prints the child's launches per
              kernel, the guard's overhead (the echo and the Forward point
              armed against disarmed, in ABBA turns; "unresolved" when the
              difference is inside the disarmed turns' spread) and the
              phase's wall time with the card's name and power limit;
-13. times  — each kernel's time at the main path's shapes beside its
+14. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(): the whole-frame
              transmits and copy_blocks walked over distinct buffers (each
              frame cold in the 50 MB L2, as on the path) and run back to
@@ -188,7 +211,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 13 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 14 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -850,7 +873,7 @@ def phase_shard(torch, T, ps_summary):
     card behind sharded_ps_channel; W row-scattered by scatter_param,
     fan-out Forward, keyed routing, a replicated PS of 2 groups x 3
     replicas and a live 2 -> 4 reshard under load.  Returns the launch
-    counts of the path."""
+    counts of the path and the keyed Get median (for [native])."""
     import numpy as np
 
     from incubator_brpc_tpu_torch.chaos.harness import ERROR_WHITELIST
@@ -1151,6 +1174,7 @@ def phase_shard(torch, T, ps_summary):
         check(steps["keyed"] == {"copy_csum_blocks": 2 * KEYED_KEYS},
               f"keyed Put/Get launched {steps['keyed']}: expected one K1 per hop")
         vmb = vals[0].nbytes / (1 << 20)
+        keyed_get_ms = median_ms(kget_s)
         say(f"keyed routing: {KEYED_KEYS} Puts and Gets of ({SHARD_VALUE[0]}, {d}) f32 "
             f"({vmb:.1f} MiB) each one RPC on shard_of(key); shard_of equals the JAX package's "
             f"golden list; Put {median_ms(kput_s):.3f} ms, Get {median_ms(kget_s):.3f} ms median")
@@ -1411,7 +1435,7 @@ def phase_shard(torch, T, ps_summary):
 
     counts = {k: sum(s.get(k, 0) for s in steps.values()) for k in T.launches}
     say(f"launches per step {steps}")
-    return counts
+    return counts, {"keyed_get_ms": keyed_get_ms}
 
 
 def closed_loop(stubs, req, x_bytes, inflight, duration):
@@ -3630,6 +3654,561 @@ def phase_mesh(torch, T, ps_summary):
 # [witness]: the analysis toolchain's two runtime witnesses, armed on the card
 # ---------------------------------------------------------------------------
 
+# ---- [native]: the C++ engine (native/) serving the PS on the card --------
+NATIVE_PAYLOAD = 4096  # bench.py's echo_4kb message size
+NATIVE_PRESS_S = 2.0  # press_native's run, both ends on the engine
+NATIVE_SYNC_CALLS = 2000  # Python API sync echoes over connection_type="native"
+NATIVE_WINDOW = 32  # a call_many window (tests/test_ring.py:750's shape, doubled)
+NATIVE_WINDOW_REPS = 8
+NATIVE_GET_KEYS = 32  # device-resident (64, 6144) f32 values: the [shard] value shape
+NATIVE_SHARD_KEYS = 64  # bench_shard_window's keyed window, on PS shards
+NATIVE_FAULT_CALLS = 64
+NATIVE_TIMEOUT_MS = 30000  # every native channel's, stated
+
+
+class _CountingTorch:
+    """Stands in for ``torch`` inside models/parameter_server.py while
+    [native] runs: counts ``from_numpy``, the Forward's one host stack a
+    key-group handed to the device (one upload), and delegates the rest."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.uploads = 0
+
+    def from_numpy(self, a):
+        self.uploads += 1
+        return self._torch.from_numpy(a)
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+def start_native_build():
+    """Build the engine (g++ engine.cpp, gcc fastcall.c) in a thread
+    beside the kernels' nvcc builds; [native] joins it."""
+    out = {}
+
+    def build():
+        from incubator_brpc_tpu_torch import native
+
+        t0 = time.perf_counter()
+        try:
+            prebuilt = native.engine_path().exists()
+            native.require()
+            out.update(s=time.perf_counter() - t0, prebuilt=prebuilt,
+                       boundary=native.call_boundary())
+        except Exception as e:  # noqa: BLE001 — reported by [native]
+            out["error"] = repr(e)
+
+    t = threading.Thread(target=build, name="native-build", daemon=True)
+    t.start()
+    return t, out
+
+
+def frames_in(frame: bytes) -> int:
+    """tpu_std frames in one engine dispatch (b"TRPC" u32 meta u32 body)."""
+    n = off = 0
+    while off + 12 <= len(frame) and frame[off:off + 4] == b"TRPC":
+        meta, body = int.from_bytes(frame[off + 4:off + 8], "big"), int.from_bytes(
+            frame[off + 8:off + 12], "big")
+        off += 12 + meta + body
+        n += 1
+    return n
+
+
+def native_echo(torch, smi):
+    """press_native against a port native server, the Python API's sync
+    path, and a call_many window against per-call sync calls."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.client.ring import RingFailure
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.tools.rpc_press import press_native
+
+    srv = Server(ServerOptions(native_engine=True))
+    srv.add_service(EchoService())
+    check(srv.start(0) == 0 and srv._native_engine is not None, "native echo server did not start")
+    ch = Channel(ChannelOptions(timeout_ms=NATIVE_TIMEOUT_MS, connection_type="native"))
+    out = {}
+    try:
+        lines = []
+        r = press_native(f"127.0.0.1:{srv.port}", payload_len=NATIVE_PAYLOAD,
+                         duration_s=NATIVE_PRESS_S, report=lines.append)
+        check(r is not None and r["ok"] > 0 and r["failed"] == 0, f"press_native: {r} {lines}")
+        out["press"] = r
+        print(f"[native] rpc_press --native, {NATIVE_PAYLOAD} B echo, {NATIVE_PRESS_S} s, "
+              f"8 workers x depth 1 on one connection each: {r['qps']} qps, p50 {r['p50_us']} us, "
+              f"p99 {r['p99_us']} us, {r['ok']} ok, {r['failed']} failed")
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "native channel init failed")
+        stub = echo_stub(ch)
+        msg = "x" * NATIVE_PAYLOAD
+        lats = []
+        t0 = time.perf_counter()
+        for i in range(NATIVE_SYNC_CALLS):
+            c = Controller()
+            m = f"{i:08d}" + msg[8:]
+            t1 = time.monotonic_ns()
+            resp = stub.Echo(c, EchoRequest(message=m))
+            lats.append((time.monotonic_ns() - t1) // 1000)
+            check(not c.failed() and resp.message == m, f"native sync echo {i}: {c.error_text()}")
+        wall = time.perf_counter() - t0
+        lats.sort()
+        out["sync"] = (NATIVE_SYNC_CALLS / wall, pct(lats, 0.5), pct(lats, 0.99))
+        print(f"[native] Python API sync echo over connection_type=native, {NATIVE_PAYLOAD} B, "
+              f"one thread: {out['sync'][0]:.1f} qps, p50 {out['sync'][1]} us, "
+              f"p99 {out['sync'][2]} us over {NATIVE_SYNC_CALLS} calls, every reply equal")
+        reqs = [EchoRequest(message=f"{i:04d}" + msg[4:]).SerializeToString()
+                for i in range(NATIVE_WINDOW)]
+        win_s, per_s = [], []
+        for _ in range(NATIVE_WINDOW_REPS):
+            t0 = time.perf_counter()
+            res = stub.call_many("Echo", reqs)
+            win_s.append(time.perf_counter() - t0)
+            for i, b in enumerate(res):
+                check(not isinstance(b, RingFailure), f"window call {i} failed: {b}")
+                e = EchoResponse()
+                e.ParseFromString(b)
+                check(e.message == f"{i:04d}" + msg[4:], f"window reply {i} differs")
+            t0 = time.perf_counter()
+            for i in range(NATIVE_WINDOW):
+                c = Controller()
+                resp = stub.Echo(c, EchoRequest(message=f"{i:04d}" + msg[4:]))
+                check(not c.failed() and resp.message == f"{i:04d}" + msg[4:],
+                      f"per-call echo {i}: {c.error_text()}")
+            per_s.append(time.perf_counter() - t0)
+        rs = ch._ring_obj.counters()
+        check(rs["fallback_calls"] == 0 and rs["double_resolves"] == 0, f"ring counters {rs}")
+        out["window_ms"], out["per_call_ms"] = median_ms(win_s), median_ms(per_s)
+        print(f"[native] call_many window of {NATIVE_WINDOW} x {NATIVE_PAYLOAD} B echoes "
+              f"{out['window_ms']:.3f} ms against {NATIVE_WINDOW} per-call sync calls "
+              f"{out['per_call_ms']:.3f} ms (median of {NATIVE_WINDOW_REPS}; ring "
+              f"{rs['boundary_crossings']} crossings for {rs['submissions']} calls, "
+              f"0 fallbacks)")
+    finally:
+        ch.close()
+        srv.stop()
+    return out
+
+
+def native_ps(torch, ps_summary):
+    """The batched PS at d = 6144 on the card behind the engine: W's
+    bytes over TCP, Forward closed loops with the read-burst collector,
+    a call_many window of device-resident Gets."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.analysis.device_witness import transfer_counts
+    from incubator_brpc_tpu_torch.batching.policy import BatchPolicy
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.client.ring import RingFailure
+    from incubator_brpc_tpu_torch.models import parameter_server as ps_mod
+    from incubator_brpc_tpu_torch.models.parameter_server import (
+        _FORWARD_KERNEL,
+        PS_BATCH_POLICY,
+        PsService,
+        ps_stub,
+    )
+    from incubator_brpc_tpu_torch.observability.profiling import kernel_snapshot
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    dev, d = card(torch), PS_DIM
+    srv = Server(ServerOptions(native_engine=True, enable_batching=True, batch_policies={
+        "PsService.Get": BatchPolicy(max_batch_size=NATIVE_WINDOW, max_wait_us=1000)}))
+    svc = PsService(device=dev)
+    srv.add_service(svc)
+    bursts = []  # frames per engine dispatch, for the Forward windows
+    process = srv._process_native_frame
+
+    def counted(conn_id, frame):
+        bursts.append(frames_in(frame))
+        process(conn_id, frame)
+
+    srv._process_native_frame = counted  # looked up per dispatch
+    check(srv.start(0) == 0 and srv._native_engine is not None, "native PS did not start")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+    svc.put_param("w", W)  # W stays on the card for Forward
+    ch = Channel(ChannelOptions(timeout_ms=NATIVE_TIMEOUT_MS, connection_type="native"))
+    counting = _CountingTorch(torch)
+    out = {}
+    try:
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "native PS channel init failed")
+        stub = ps_stub(ch)
+        # ---- W's bytes over TCP: a Put stores them, a Get returns them -----
+        w_host = W.cpu().numpy().tobytes()
+        put_s, get_s = [], []
+        for _ in range(3):
+            c = Controller()
+            c.request_attachment.append(w_host)
+            t0 = time.perf_counter()
+            stub.Put(c, EchoRequest(message="w_tcp"))
+            put_s.append(time.perf_counter() - t0)
+            check(not c.failed(), f"native Put of W: {c.error_text()}")
+            c = Controller()
+            t0 = time.perf_counter()
+            stub.Get(c, EchoRequest(message="w_tcp"))
+            get_s.append(time.perf_counter() - t0)
+            check(not c.failed() and c.response_attachment.to_bytes() == w_host,
+                  f"native Get of W returned other bytes: {c.error_text()}")
+        out["put_ms"], out["get_ms"] = median_ms(put_s), median_ms(get_s)
+        print(f"[native] Put / Get of W's {len(w_host) / 1e6:.1f} MB as bytes over TCP through "
+              f"the engine: {out['put_ms']:.3f} / {out['get_ms']:.3f} ms median of 3, bytes "
+              f"equal ([ps] over ici:// {ps_summary['put_ms']:.3f} / {ps_summary['get_ms']:.3f} ms)")
+        # ---- Forward: p = 1 batching off, p = 32 on -------------------------
+        xs = np.random.RandomState(SEED).randn(64, d).astype(np.float32)
+        x_bytes = [x.tobytes() for x in xs]
+        x_dev = torch.from_numpy(xs).to(dev).double()
+        ref, scale = x_dev @ W.double(), x_dev.abs() @ W.abs().double()
+        req = EchoRequest(message="w")
+        stubs = [stub]  # every caller on the one mux connection
+        traces0 = _FORWARD_KERNEL.trace_count()
+        ps_mod.torch = counting
+        for par, cfg in ((1, "off"), (32, "on")):
+            if cfg == "off":
+                srv.disable_method_batching("PsService.Forward")
+            else:
+                srv.enable_method_batching("PsService.Forward")
+            batcher = srv.batcher("PsService.Forward")
+            closed_loop(stubs, req, x_bytes, min(par, 4), 0.1)  # warm
+            rows0 = batcher.rows if batcher else 0
+            b0 = batcher.batches if batcher else 0
+            up0, pull0 = counting.uploads, transfer_counts().get("ps.forward-pull", 0)
+            ex0 = kernel_snapshot().get("ps.forward", {}).get("executions", 0)
+            del bursts[:]
+            lats, ys, wall, _ = closed_loop(stubs, req, x_bytes, par, 1.0)
+            frames = list(bursts)
+            uploads = counting.uploads - up0
+            pulls = transfer_counts().get("ps.forward-pull", 0) - pull0
+            execs = kernel_snapshot()["ps.forward"]["executions"] - ex0
+            rows = (batcher.rows - rows0) if batcher else len(ys)
+            batches = (batcher.batches - b0) if batcher else len(ys)
+            check(uploads == execs == pulls == batches > 0,
+                  f"Forward p{par} {cfg}: {uploads} uploads, {execs} executions, {pulls} pulls "
+                  f"for {batches} batches: each batch must upload once and pull once")
+            idx = torch.tensor([i for i, _ in ys], device=dev)
+            got = torch.from_numpy(np.frombuffer(bytearray(b"".join(y for _, y in ys)),
+                                                 np.float32).reshape(len(ys), d)).to(dev)
+            bad, worst = past_f64(got, ref[idx], scale[idx])
+            check(bad == 0, f"native Forward: {bad} outputs off by up to {worst:.3g} of |x| @ |W|")
+            qps = len(lats) / wall
+            uq, u50, u99 = ps_summary[(par, cfg)]
+            out[(par, cfg)] = (qps, pct(lats, 0.5), pct(lats, 0.99))
+            hist = {k: frames.count(k) for k in sorted(set(frames))}
+            print(f"[native] Forward p{par:2} batching {cfg:3}: {qps:9.1f} qps, p50 "
+                  f"{pct(lats, 0.5)} us, p99 {pct(lats, 0.99)} us over {len(lats)} calls "
+                  f"([ps] ici:// {uq:.1f} qps, p50 {u50} us, p99 {u99} us); {batches} batches "
+                  f"for {rows} rows (mean {rows / max(batches, 1):.2f}, max "
+                  f"{batcher.max_batch_seen if batcher else 1}); uploads = executions = "
+                  f"ps.forward-pull = {batches}; frames per engine dispatch {hist}; max |y - "
+                  f"ref| / (|x| @ |W|) {worst:.3g}")
+            if cfg == "on":
+                out["burst_frames"] = hist
+                out["mean_batch"] = rows / max(batches, 1)
+                check(batches < rows, f"{batches} batches for {rows} rows: nothing coalesced")
+        wall_us, busy_us, _ = device_profile(torch, lambda: closed_loop(stubs, req, x_bytes, 32, 0.3))
+        check(busy_us > 0, "the profiler saw no CUDA work in the native Forward window")
+        out["busy"] = 100 * busy_us / wall_us
+        print(f"[profile] native ps forward p32 on: wall {wall_us:.0f} us, device busy "
+              f"{busy_us:.0f} us ({out['busy']:.1f}%)")
+        traces = _FORWARD_KERNEL.trace_count() - traces0
+        check(traces <= len(PS_BATCH_POLICY.padding_buckets),
+              f"the native Forward traced {traces} new product shapes")
+        # ---- a call_many window of device-resident Gets --------------------
+        vals = torch.randn((NATIVE_GET_KEYS, *SHARD_VALUE), generator=g, device=dev)
+        keys = [f"v{i}" for i in range(NATIVE_GET_KEYS)]
+        for k, v in zip(keys, vals):
+            svc.put_param(k, v)
+        want = {k: v.cpu().numpy().tobytes() for k, v in zip(keys, vals)}
+        replies = []
+        finish = ch._finish_native_response
+
+        def recording(ctrl, *args):  # the ring drops a reply's attachment
+            finish(ctrl, *args)
+            replies.append((ctrl.__dict__.get("response_bytes"),
+                            ctrl.response_attachment.to_bytes()))
+
+        ch._finish_native_response = recording
+        gb = srv.batcher("PsService.Get")
+        win_s, per_s, batches_per = [], [], []
+        packed = [EchoRequest(message=k).SerializeToString() for k in keys]
+        for rep in range(NATIVE_WINDOW_REPS):
+            del replies[:]
+            b0, seen0 = gb.batches, gb.max_batch_seen
+            t0 = time.perf_counter()
+            res = stub.call_many("Get", packed)
+            win_s.append(time.perf_counter() - t0)
+            batches_per.append(gb.batches - b0)
+            check(not any(isinstance(r, RingFailure) for r in res), f"Get window: {res[:2]}")
+            got = {}
+            for m, att in replies:
+                e = EchoResponse()
+                e.ParseFromString(m)
+                got[e.message] = att
+            check(got == want, f"Get window rep {rep}: {len(got)} replies, values differ")
+            t0 = time.perf_counter()
+            for k in keys:
+                c = Controller()
+                stub.Get(c, EchoRequest(message=k))
+                check(not c.failed() and c.response_attachment.to_bytes() == want[k],
+                      f"per-call Get {k}: {c.error_text()}")
+            per_s.append(time.perf_counter() - t0)
+        del ch._finish_native_response
+        check(gb.max_batch_seen >= NATIVE_WINDOW // 2 and max(batches_per) <= 2,
+              f"Get window: max_batch_seen {gb.max_batch_seen}, batches a window {batches_per}")
+        out["get_window_ms"], out["get_per_call_ms"] = median_ms(win_s), median_ms(per_s)
+        out["get_batches"] = batches_per
+        print(f"[native] call_many window of {NATIVE_GET_KEYS} Gets of device-resident "
+              f"{SHARD_VALUE} f32 values, PsService.Get batched: {out['get_window_ms']:.3f} ms "
+              f"against {NATIVE_GET_KEYS} per-call sync Gets {out['get_per_call_ms']:.3f} ms "
+              f"(median of {NATIVE_WINDOW_REPS}); batches a window {batches_per}, max_batch_seen "
+              f"{gb.max_batch_seen}; every reply's bytes equal its value's")
+    finally:
+        ps_mod.torch = torch
+        ch.close()
+        srv.stop()
+    return out
+
+
+def native_shard(torch, shard_summary):
+    """Four native PsService shard servers on the card behind
+    sharded_ps_channel over native sub-channels: a window of keyed Gets
+    crosses into C once per shard."""
+    from incubator_brpc_tpu_torch.client.channel import ChannelOptions
+    from incubator_brpc_tpu_torch.client.ring import RingFailure, fanout_log
+    from incubator_brpc_tpu_torch.models.parameter_server import (
+        PsService,
+        ps_stub,
+        sharded_ps_channel,
+    )
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    dev = card(torch)
+    servers, svcs, eps = [], [], []
+    out = {}
+    try:
+        for _ in range(SHARDS):
+            svc = PsService(device=dev)
+            srv = Server(ServerOptions(native_engine=True))
+            srv.add_service(svc)
+            check(srv.start(0) == 0, "a native shard server did not start")
+            servers.append(srv)
+            svcs.append(svc)
+            eps.append(f"127.0.0.1:{srv.port}")
+        sh = sharded_ps_channel(endpoints=eps, channel_options=ChannelOptions(
+            timeout_ms=NATIVE_TIMEOUT_MS, connection_type="native"))
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        keys = [f"key{i}" for i in range(NATIVE_SHARD_KEYS)]
+        vals = torch.randn((NATIVE_SHARD_KEYS, *SHARD_VALUE), generator=g, device=dev)
+        for k, v in zip(keys, vals):  # each value on its owner's card store
+            svcs[sh.shard_of(k)].put_param(k, v)
+        want = {k: v.cpu().numpy().tobytes() for k, v in zip(keys, vals)}
+        replies = []
+        for part in sh.partitions():
+            finish = part._finish_native_response
+
+            def recording(ctrl, *args, _f=finish):
+                _f(ctrl, *args)
+                replies.append((ctrl.__dict__.get("response_bytes"),
+                                ctrl.response_attachment.to_bytes()))
+
+            part._finish_native_response = recording
+        win_s = []
+        for rep in range(3):
+            del replies[:]
+            before = fanout_log.counters()
+            t0 = time.perf_counter()
+            res = ps_stub(sh).call_many("Get", [EchoRequest(message=k) for k in keys])
+            win_s.append(time.perf_counter() - t0)
+            after = fanout_log.counters()
+            cross = after["crossings"] - before["crossings"]
+            fb = after["fallback_calls"] - before["fallback_calls"]
+            check(cross == SHARDS and fb == 0,
+                  f"shard window: {cross} crossings, {fb} per-call fallbacks")
+            check(not any(isinstance(r, RingFailure) for r in res), f"shard window: {res[:2]}")
+            got = {}
+            for m, att in replies:
+                e = EchoResponse()
+                e.ParseFromString(m)
+                got[e.message] = att
+            check(got == want, f"shard window rep {rep}: values differ from their Puts")
+        out["window_ms"] = median_ms(win_s)
+        print(f"[native] sharded_ps_channel over {SHARDS} native shard servers on {dev} "
+              f"(sub-channel timeout {NATIVE_TIMEOUT_MS} ms): a call_many window of "
+              f"{NATIVE_SHARD_KEYS} keyed Gets of {SHARD_VALUE} f32 crossed into C {SHARDS} times "
+              f"(once per shard), 0 per-call fallbacks, {out['window_ms']:.3f} ms median of 3, "
+              f"every value equal ([shard] keyed Get over ici:// one at a time "
+              f"{shard_summary['keyed_get_ms']:.3f} ms each)")
+    finally:
+        for srv in servers:
+            srv.stop()
+    return out
+
+
+def native_multiproto():
+    """One native port answering HTTP and redis: the C fast paths (no
+    Python dispatch) and a Python fallback for each."""
+    import socket
+
+    from incubator_brpc_tpu_torch import native
+    from incubator_brpc_tpu_torch.models.echo import EchoService
+    from incubator_brpc_tpu_torch.protocols.redis import KVRedisService
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    class SmokeRedis(KVRedisService):
+        def echo(self, value):  # the engine's KV has no ECHO: Python answers
+            return bytes(value)
+
+    kv = SmokeRedis()
+    srv = Server(ServerOptions(native_engine=True, redis_service=kv))
+    srv.add_service(EchoService())
+    dispatched = {native.PROTO_HTTP: 0, native.PROTO_REDIS: 0, native.PROTO_TPU_STD: 0}
+    fallback = srv._native_fallback_frame
+
+    def counted(conn_id, proto, frame):
+        dispatched[proto] += 1
+        fallback(conn_id, proto, frame)
+
+    srv._native_fallback_frame = counted  # bound at start
+    check(srv.start(0) == 0, "the multiprotocol native server did not start")
+    try:
+        body = b"native-http-echo"
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/EchoService/Echo.raw", data=body, method="POST"),
+            timeout=10).read()
+        check(r == body and dispatched[native.PROTO_HTTP] == 0,
+              f"native HTTP echo: {r!r}, Python dispatches {dispatched}")
+        s = socket.create_connection(("127.0.0.1", srv.port), timeout=10)
+
+        def cmd(*parts):
+            s.sendall(b"*%d\r\n" % len(parts) + b"".join(
+                b"$%d\r\n%s\r\n" % (len(p), p) for p in parts))
+            data = b""
+            while not data.endswith(b"\r\n") or (data.startswith(b"$") and data.count(b"\r\n") < 2
+                                                 and not data.startswith(b"$-1")):
+                data += s.recv(65536)
+            return data
+
+        try:
+            check(cmd(b"SET", b"smoke", b"v1") == b"+OK\r\n", "native SET")
+            check(cmd(b"GET", b"smoke") == b"$2\r\nv1\r\n", "native GET")
+            check(dispatched[native.PROTO_REDIS] == 0 and kv.get(b"smoke") is None,
+                  f"redis SET/GET reached Python: {dispatched}")
+            check(cmd(b"ECHO", b"py") == b"$2\r\npy\r\n", "the Python redis fallback")
+            check(dispatched[native.PROTO_REDIS] == 1, f"redis fallback dispatches {dispatched}")
+        finally:
+            s.close()
+        r = json.loads(urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/EchoService/Echo",
+            data=json.dumps({"message": "py-route"}).encode(),
+            headers={"Content-Type": "application/json"}), timeout=10).read())
+        check(r.get("message") == "py-route" and dispatched[native.PROTO_HTTP] == 1,
+              f"the Python HTTP fallback: {r}, dispatches {dispatched}")
+    finally:
+        srv.stop()
+    print("[native] one port, three protocols: HTTP POST /EchoService/Echo.raw and redis "
+          "SET/GET answered in C (0 Python dispatches; the Python KV never saw the key), "
+          "then the JSON route and redis ECHO answered by the Python fallback (1 dispatch each)")
+
+
+def native_fault():
+    """A native.srv_write short-write plan on the port's injector: hits
+    counted, every call ends once, answered or failed with an ERPC code."""
+    from incubator_brpc_tpu_torch import errors
+    from incubator_brpc_tpu_torch.chaos import FaultPlan, FaultSpec, injector
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.client.ring import RingFailure
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    srv = Server(ServerOptions(native_engine=True))
+    srv.add_service(EchoService())
+    check(srv.start(0) == 0, "the native fault server did not start")
+    ch = Channel(ChannelOptions(timeout_ms=5000, connection_type="native"))
+    codes = {v for k, v in vars(errors).items() if k.startswith("E") and isinstance(v, int)}
+    try:
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "native channel init failed")
+        stub = echo_stub(ch)
+        injector.arm(FaultPlan([FaultSpec("native.srv_write", "short_write", arg=512,
+                                          probability=1.0, max_hits=100000)], seed=SEED))
+        msg = "f" * 20000
+        ended = [0] * NATIVE_FAULT_CALLS
+        done = [threading.Event() for _ in range(NATIVE_FAULT_CALLS)]
+        ctrls = []
+        for i in range(NATIVE_FAULT_CALLS):
+            c = Controller()
+
+            def on_done(i=i):
+                ended[i] += 1
+                done[i].set()
+
+            stub.Echo(c, EchoRequest(message=f"{i:05d}" + msg), done=on_done)
+            ctrls.append(c)
+        res = stub.call_many("Echo", [EchoRequest(message=f"{i:05d}" + msg).SerializeToString()
+                                      for i in range(NATIVE_FAULT_CALLS)])
+        check(all(e.wait(30) for e in done), "an async call under the fault never ended")
+        time.sleep(0.2)  # a second completion would land by now
+        check(ended == [1] * NATIVE_FAULT_CALLS, f"async calls ended {set(ended)} times")
+        answered = failed = 0
+        for c in ctrls:
+            if c.failed():
+                check(c.error_code in codes, f"a non-ERPC code {c.error_code}")
+                failed += 1
+            else:
+                answered += 1
+        for i, r in enumerate(res):
+            if isinstance(r, RingFailure):
+                check(r.error_code in codes, f"a non-ERPC ring code {r.error_code}")
+                failed += 1
+            else:
+                e = EchoResponse()
+                e.ParseFromString(r)
+                check(e.message == f"{i:05d}" + msg, f"window reply {i} differs")
+                answered += 1
+        check(ch._ring_obj.counters()["double_resolves"] == 0, "a ring slot resolved twice")
+        injector.disarm()
+        hits = injector.site_hits().get("native.srv_write", {}).get("short_write", 0)
+        check(hits > 0, "native.srv_write never fired")
+    finally:
+        injector.disarm()
+        ch.close()
+        srv.stop()
+    print(f"[native] native.srv_write short_write (512 B) armed on the port's injector: {hits} "
+          f"hits; {2 * NATIVE_FAULT_CALLS} calls (async and one call_many window of 20 KB "
+          f"echoes) each ended once: {answered} answered byte-equal, {failed} failed with an "
+          f"ERPC code")
+    return {"hits": hits, "answered": answered, "failed": failed}
+
+
+def phase_native(torch, T, smi, build, ps_summary, shard_summary):
+    """[native]: the C++ engine serving the PS on the card.  Returns the
+    launch counts of the path (TCP frames carry host bytes: none)."""
+    thread, built = build
+    t_phase = time.perf_counter()
+    thread.join(timeout=600)
+    check("error" not in built and "s" in built, f"the native engine did not build: {built}")
+    boundary, why = built["boundary"]
+    print(f"[native] engine {'loaded (built earlier)' if built['prebuilt'] else 'built'} in "
+          f"{built['s']:.1f} s (g++ engine.cpp, gcc fastcall.c, beside the nvcc builds); call "
+          f"boundary {boundary}" + (f" ({why})" if why else ""))
+    T.reset_launch_counts()
+    out = {"boundary": boundary, "echo": native_echo(torch, smi)}
+    out["ps"] = native_ps(torch, ps_summary)
+    out["shard"] = native_shard(torch, shard_summary)
+    native_multiproto()
+    out["fault"] = native_fault()
+    counts = dict(T.launches)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[native] phase {out['s']:.1f} s on {smi}; launches {counts} (the engine's TCP "
+          f"frames carry host bytes)")
+    return counts, out
+
+
 WITNESS_SLICE = 10  # ici://slice10/chip{0..3}: the child's servers
 WITNESS_ECHOES = 4  # per chunk mode, each checked
 WITNESS_TIMED = 24  # echoes per overhead turn
@@ -3639,6 +4218,7 @@ WITNESS_CACHE_VALUES = 16
 WITNESS_DECODE_STEPS = 8
 WITNESS_TLS_GETS = 3
 WITNESS_FORWARD_P = 8
+WITNESS_NATIVE_S = 0.5  # the native engine's armed Forward loop
 # the seeded module the guard must refuse (written under an extra scope
 # root, so its call sites are guarded like the package's)
 WITNESS_SEEDED_SRC = '''\
@@ -4007,6 +4587,52 @@ def witness_tls(torch, dev, W, pulls):
     return {"frames": WITNESS_TLS_GETS, "views": views}
 
 
+def witness_native(torch, dev, W, pulls):
+    """A short native Forward loop, armed: PsService on the card behind
+    the C++ engine with batching on, p = WITNESS_FORWARD_P async callers
+    on one native channel; one ps.forward-pull per batch."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    d = W.shape[0]
+    svc = PsService(device=dev)
+    svc.put_param("w", W)
+    srv = Server(ServerOptions(native_engine=True, enable_batching=True))
+    srv.add_service(svc)
+    check(srv.start(0) == 0 and srv._native_engine is not None, "the native PS did not start")
+    ch = Channel(ChannelOptions(timeout_ms=60000, connection_type="native"))
+    try:
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "native channel init failed")
+        stubs, req = [ps_stub(ch)], EchoRequest(message="w")
+        xs = np.random.RandomState(SEED + 2).randn(64, d).astype(np.float32)
+        x_bytes = [x.tobytes() for x in xs]
+        closed_loop(stubs, req, x_bytes, 4, 0.2)  # warm
+        batcher = srv.batcher("PsService.Forward")
+        b0, f0 = batcher.batches, pulls("ps.forward-pull")
+        lats, ys, wall, _ = closed_loop(stubs, req, x_bytes, WITNESS_FORWARD_P, WITNESS_NATIVE_S)
+        batches, fwd = batcher.batches - b0, pulls("ps.forward-pull") - f0
+        check(fwd == batches > 0, f"witness native: {fwd} ps.forward-pull for {batches} batches")
+        ref = torch.from_numpy(xs).to(dev).double() @ W.double()
+        scale = torch.from_numpy(np.abs(xs)).to(dev).double() @ W.abs().double()
+        idx = torch.tensor([i for i, _ in ys], device=dev)
+        got = torch.from_numpy(np.frombuffer(bytearray(b"".join(y for _, y in ys)),
+                                             np.float32).reshape(len(ys), d)).to(dev)
+        bad, worst = past_f64(got, ref[idx], scale[idx])
+        check(bad == 0, f"witness native: {bad} Forward outputs off by up to {worst:.3g}")
+    finally:
+        ch.close()
+        srv.stop()
+    qps = len(lats) / wall
+    witness_say(f"native engine PS Forward p{WITNESS_FORWARD_P} batching on, "
+                f"{WITNESS_NATIVE_S} s: {qps:.1f} qps, {batches} batches = {fwd} "
+                f"ps.forward-pull; max |y - ref| / (|x| @ |W|) {worst:.3g}")
+    return {"qps": qps, "batches": batches, "forward_pulls": fwd}
+
+
 def witness_child(device_name: str) -> int:
     """The [witness] phase's child interpreter, on the card: both
     witnesses armed before the port creates its locks, then every guarded
@@ -4051,6 +4677,7 @@ def witness_child(device_name: str) -> int:
     mesh_close()
     result["mesh"] = mesh_fig
     result["tls"] = witness_tls(torch, dev, W, pulls)
+    result["native"] = witness_native(torch, dev, W, pulls)
     report = dw.cross_check()
     locks = lw.cross_check()
     result.update(violations=report["violations"], scope_uses=report["scope_uses"],
@@ -4126,7 +4753,7 @@ def phase_witness(torch, smi):
           "the witness child reported violations or contradictions")
     check("cache.host-spill" not in r["scope_uses"], f"a spill: {r['scope_uses']}")
     check(r["cache"] == {"spills": 0, "views": 0}, f"ICI cache hits pulled: {r['cache']}")
-    for path in ("ps", "mesh"):
+    for path in ("ps", "mesh", "native"):
         check(r[path]["forward_pulls"] == r[path]["batches"] > 0,
               f"{path}: {r[path]['forward_pulls']} pulls for {r[path]['batches']} batches")
     check(r["decode"]["token_sums"] == r["decode"]["steps"] == WITNESS_DECODE_STEPS,
@@ -4402,11 +5029,12 @@ def main() -> int:
     faulthandler.dump_traceback_later(RUN_DEADLINE_S, exit=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    native_build = start_native_build()  # g++/gcc beside the nvcc builds
     smi = phase_build()
     errs, main_csum = phase_kernels(torch, T)
     echo_counts = phase_echo(torch, T, main_csum)
     ps_counts, products, ps_summary = phase_ps(torch, T)
-    shard_counts = phase_shard(torch, T, ps_summary)
+    shard_counts, shard_summary = phase_shard(torch, T, ps_summary)
     cache_counts = phase_cache(torch, T)
     stream_counts = phase_stream(torch, T)
     child = SmokeChild(card(torch), DCN_SLICE)
@@ -4421,14 +5049,17 @@ def main() -> int:
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
     http_counts, http_trace = phase_http(torch, T)
     mesh_counts, _ = phase_mesh(torch, T, ps_summary)
+    native_counts, _ = phase_native(torch, T, smi, native_build, ps_summary, shard_summary)
+    check(not any(native_counts.values()), f"the native path launched {native_counts}")
     witness = phase_witness(torch, smi)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
-             cluster_counts, http_counts, mesh_counts]
+             cluster_counts, http_counts, mesh_counts, native_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
-          f"http {http_counts}; mesh {mesh_counts}; witness (child, its whole run) "
+          f"http {http_counts}; mesh {mesh_counts}; native {native_counts}; witness "
+          f"(child, its whole run) "
           f"{witness['launches']}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),
                     ("http", http_counts), ("mesh", mesh_counts)]:

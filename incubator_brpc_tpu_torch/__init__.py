@@ -23,7 +23,10 @@ server (``sharded_ps_channel``, ``scatter_param``), each replicated
 single-controller mesh and its collective lowerings
 (``parallel/mesh.py``, ``parallel/collectives.py``) with the in-mesh
 sharded parameter server and prefill (``batching/sharded.py``) and the
-dp x tp training step.  ROADMAP.md lists what remains.
+dp x tp training step; the native C++ engine (``native/``:
+``Server(native_engine=True)``, ``connection_type="native"``,
+``call_many`` and the submission ring) with ``tools/rpc_press.py`` and
+``tools/parallel_http.py``.  ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,14 @@ device.  One port speaks every registered protocol.
 Micro-batching (``enable_batching``, ``batching/``), the builtin
 observability pages (``builtin/``, on the same port or behind
 ``internal_port``), rpc_dump sampling and trackme are carried over.
-Not carried over yet, raising NotImplementedError when asked for: the
-native C++ engine (ROADMAP.md queue 1 item 22), with or without TLS.
+``native_engine=True`` serves tpu_std (and sniffed HTTP and redis)
+over the C++ engine (``native/``): the engine cuts every fallback frame
+of one read burst into one dispatch, whose batched rows reach each
+Batcher as one ``submit_many`` and whose replies leave as one
+``ns_send_burst`` per connection.  Where the JAX package serves on its
+Python transport when the engine cannot be built, the port raises
+``native.NativeEngineError``; the semantic fallbacks (TLS, first-message
+auth, a non-TCP endpoint) stay as they are there, logged.
 """
 
 from __future__ import annotations
@@ -27,9 +33,136 @@ from incubator_brpc_tpu_torch.runtime.scheduler import get_task_control
 from incubator_brpc_tpu_torch.server.method_status import MethodStatus, make_limiter
 from incubator_brpc_tpu_torch.server.service import MethodSpec, Service
 from incubator_brpc_tpu_torch.transport.acceptor import Acceptor
-from incubator_brpc_tpu_torch.unported import unported
 from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
 from incubator_brpc_tpu_torch.utils.logging import log_error, log_info, log_warning
+
+
+# ---- server response ring (docs/fastpath.md "server ring") ----
+# Per-thread staging of native-connection response frames: while a
+# harvested window is being answered (a native read-burst loop, or a
+# micro-batcher scatter fan-out), _NativeConnSocket.write stages frames
+# here instead of crossing into C per call, and resp_ring_flush ships
+# each connection's frames as ONE ns_send_burst (one writev burst per
+# harvested window — the server half of nc_mux_submit_many).  tpu_std
+# frames carry correlation ids, so batching replies is order-safe; the
+# HTTP/RESP paths never reach this collector.
+_resp_ring_tls = threading.local()
+
+
+def resp_ring_begin():
+    """Open a response-ring staging scope on this thread.  Returns a
+    truthy token when THIS call opened the scope (the caller must pass
+    it to resp_ring_flush), falsy when an enclosing scope is already
+    staging (the outer scope flushes — nesting is safe)."""
+    if getattr(_resp_ring_tls, "frames", None) is not None:
+        return False
+    _resp_ring_tls.frames = []
+    return True
+
+
+def resp_ring_flush(token) -> None:
+    """Close a staging scope: group the staged frames by connection and
+    flush each group through ONE engine send_burst.  Staged writes
+    already returned 0 to their callers (buffered-write semantics, same
+    contract as the engine's internal outq); a failed burst marks every
+    staged socket failed so subsequent writes surface the error."""
+    if not token:
+        return
+    frames = _resp_ring_tls.frames
+    _resp_ring_tls.frames = None
+    if not frames:
+        return
+    # the ring.submit chaos site covers BOTH ring halves: here it hits
+    # the server response ring's flush (drop = the whole window's
+    # replies never reach the engine — clients recover via their
+    # timeout/retry budget; delay_us = a slow flush).  Short/partial
+    # writev mid-burst is the native srv_write fault inside
+    # conn_write_parts, which ns_send_burst inherits.
+    from incubator_brpc_tpu_torch.chaos import injector as _chaos
+
+    if _chaos.armed:
+        spec = _chaos.check("ring.submit", direction="flush")
+        if spec is not None:
+            if spec.action == "delay_us":
+                _chaos.sleep_us(spec.arg)
+            elif spec.action == "drop":
+                for sock, _ in frames:
+                    sock.failed = True
+                return
+    groups: Dict[tuple, list] = {}
+    order = []
+    for sock, data in frames:
+        key = (id(sock.server), sock._conn_id)
+        group = groups.get(key)
+        if group is None:
+            group = (sock.server, sock._conn_id, [], [])
+            groups[key] = group
+            order.append(group)
+        group[2].append(data)
+        group[3].append(sock)
+    for server, conn_id, datas, socks in order:
+        rc = server._engine_op(
+            lambda eng, c=conn_id, d=datas: eng.send_burst(c, d)
+        )
+        if rc is None or rc != 0:
+            for sock in socks:
+                sock.failed = True
+    try:
+        from incubator_brpc_tpu_torch.metrics import ring_metrics
+
+        ring_metrics.rpc_ring_flush_bursts << len(order)
+    except Exception:  # noqa: BLE001 — metrics never fail a flush
+        pass
+
+
+class _NativeConnSocket:
+    """Socket facade over one native-engine connection: gives the
+    Python fallback path (tpu_std.process_request/send_response) the
+    surface it needs while IO stays in the C++ engine."""
+
+    is_server_side = True
+
+    def __init__(self, server: "Server", conn_id: int):
+        self.server = server
+        self._conn_id = conn_id
+        self.remote = None
+        self.failed = False
+
+    def write(self, buf, ignore_eovercrowded=False, span=None) -> int:
+        data = buf.to_bytes()
+        frames = getattr(_resp_ring_tls, "frames", None)
+        if frames is not None:
+            # response ring open on this thread: stage instead of
+            # crossing into C — resp_ring_flush ships the window as one
+            # writev burst.  0 here means "handed to the ring", the
+            # same buffered contract as the engine's outq below.
+            frames.append((self, data))
+            if span is not None:
+                span.write_done(0)
+            return 0
+        rc = self.server._engine_op(
+            lambda eng: eng.send(self._conn_id, data)
+        )
+        if rc is None or rc != 0:
+            self.failed = True
+            if span is not None:
+                span.write_done(errors.EFAILEDSOCKET)
+            return errors.EFAILEDSOCKET
+        if span is not None:
+            span.write_done(0)  # handed to the engine's writer
+        return 0
+
+    def set_failed(self, code=0, reason=""):
+        self.failed = True
+        self.server._engine_op(lambda eng: eng.close_conn(self._conn_id))
+
+    def close_after_flush(self, code=0, reason=""):
+        """An HTTP reply with ``Connection: close``: the engine has no
+        close-after-flush for Python replies (``close_conn`` shuts the
+        socket at once and would cut a queued reply), so the connection
+        stays to the client, which asked to close it; the engine reaps it
+        at EOF.  (The JAX package's facade lacks the method, and its
+        fallback raises AttributeError after the reply.)"""
 
 
 class _InternalPortView:
@@ -108,8 +241,9 @@ class ServerOptions:
     native_engine: bool = False
     # TLS: a transport/ssl_helper.ServerSSLOptions serves every accepted
     # connection over SSL (reference ServerOptions.mutable_ssl_options;
-    # handshake per-connection in transport/acceptor.py). native_engine
-    # is not ported and raises with or without it.
+    # handshake per-connection in transport/acceptor.py). Incompatible
+    # with native_engine (the C++ engine is plaintext) — ssl wins and
+    # the server falls back to the Python transport.
     ssl_options: object = None
     # SIGTERM/SIGINT → stop(closewait_ms=graceful_quit_closewait_ms)
     # (reference -graceful_quit_on_sigterm, server.cpp signal hook).
@@ -153,6 +287,18 @@ class Server:
         self._thread_local_store = threading.local()
         self._ici_port = None
         self._batchers: Dict[str, object] = {}  # full_name -> Batcher
+        # per-thread burst collector: while a multi-frame native read
+        # burst (a client submission-ring window) is being processed,
+        # batched-method rows defer here and land in each Batcher as
+        # ONE submit_many accumulation (see _process_native_frame)
+        self._burst_tls = threading.local()
+        self._native_engine = None
+        self._native_fast_methods = []
+        self._harvest_lock = threading.Lock()
+        # engine-lifetime readers/writer state: _engine_op holds a ref
+        # while calling into C; stop() drains refs before destroy()
+        self._engine_cv = threading.Condition(self._harvest_lock)
+        self._engine_refs = 0
         self._builtin_handlers = {}
         self._internal_acceptor: Optional[Acceptor] = None
         self._internal_ep: Optional[EndPoint] = None
@@ -167,11 +313,6 @@ class Server:
         """When internal_port is set, builtin pages are denied on the
         public port (they move behind the firewall-able internal one)."""
         return self.options.internal_port is None or self.options.internal_port < 0
-
-    def harvest_native_stats(self) -> None:
-        """The builtin pages call this to fold the native engine's
-        fast-path completions into MethodStatus first.  The port has no
-        native engine (ROADMAP.md queue 1 item 22): nothing to fold."""
 
     # ---- registration (AddService, server.cpp:1230,1470) -------------------
     def add_service(self, service: Service) -> int:
@@ -349,13 +490,132 @@ class Server:
     def submit_batched(self, method, ctrl, request, response, done) -> bool:
         """Hand one parsed request to the method's Batcher.  False =
         not batched (no batcher, or it stopped) — the caller runs the
-        existing dispatch path.  (The JAX package also defers rows of a
-        native read burst into one submit_many; the native engine is
-        ROADMAP.md queue 1 item 22.)"""
+        existing dispatch path.  Inside a native read-burst window the
+        row defers to the per-thread collector instead, so the whole
+        window reaches the Batcher as one submit_many accumulation."""
         batcher = self._batchers.get(method.full_name)
         if batcher is None:
             return False
+        rows = getattr(self._burst_tls, "rows", None)
+        if rows is not None:
+            rows.append((batcher, method, ctrl, request, response, done))
+            return True
         return batcher.submit(ctrl, request, response, done)
+
+    def _burst_begin(self) -> None:
+        self._burst_tls.rows = []
+
+    def _burst_end(self) -> None:
+        """Flush the burst collector: group deferred rows by Batcher and
+        hand each group over in ONE submit_many (one lock, one flush
+        decision).  A batcher that stopped mid-burst degrades to the
+        direct dispatch path per row — the same fallback submit's False
+        return would have triggered inline."""
+        rows = self._burst_tls.rows
+        self._burst_tls.rows = None
+        if not rows:
+            return
+        groups = {}
+        for batcher, method, ctrl, request, response, done in rows:
+            groups.setdefault(id(batcher), (batcher, []))[1].append(
+                (method, ctrl, request, response, done)
+            )
+        for batcher, group in groups.values():
+            if batcher.submit_many(
+                [(c, req, res, d) for _, c, req, res, d in group]
+            ):
+                continue
+            from incubator_brpc_tpu_torch.observability.span import (
+                swap_current_span,
+            )
+
+            for method, ctrl, request, response, done in group:
+                prev = (
+                    swap_current_span(ctrl._span)
+                    if ctrl._span is not None
+                    else None
+                )
+                try:
+                    exc = self.run_user_method(
+                        method, ctrl, request, response, done
+                    )
+                    if exc is not None:
+                        ctrl.set_failed(
+                            errors.EINTERNAL, f"method raised: {exc}"
+                        )
+                        done()
+                finally:
+                    if ctrl._span is not None:
+                        swap_current_span(prev)
+
+    def _engine_op(self, fn):
+        """Run fn(engine), or return None if the engine is gone.
+
+        Reader/writer discipline instead of a global mutex on the send
+        hot path (the engine is internally thread-safe): ops take a
+        refcount under the lifetime lock and run CONCURRENTLY outside
+        it; stop() swaps the field to None under the lock and waits for
+        the refcount to drain before destroy().  An op that entered
+        before the swap finishes on a live engine; one after sees None:
+        no use-after-free, and no serialized responses."""
+        cv = self._engine_cv
+        with cv:
+            eng = self._native_engine
+            if eng is None:
+                return None
+            self._engine_refs += 1
+        try:
+            return fn(eng)
+        finally:
+            with cv:
+                self._engine_refs -= 1
+                if self._engine_refs == 0:
+                    cv.notify_all()
+
+    def harvest_native_stats(self) -> None:
+        """Fold native fast-path completions into MethodStatus.
+
+        The C++ engine answers fast-path frames without touching Python,
+        so their counts/latencies accumulate in per-method atomics
+        (engine.cpp NativeMethod).  This pulls the deltas into the same
+        MethodStatus the Python transport feeds — /status, /vars and the
+        auto limiter then see ALL traffic.  Called lazily by the /status
+        builtin and at stop(); cheap enough for every render (a couple
+        of atomic loads per method)."""
+        # single-flight: concurrent /status renders would diff the same
+        # snapshot and double-count deltas.  The engine read must ALSO
+        # happen under the lock: stop() swaps the field to None and
+        # destroys the engine under this same lock, so a render racing
+        # stop() either sees None or finishes before the free.
+        with self._harvest_lock:
+            eng = self._native_engine
+            if eng is None:
+                return
+            for entry in self._native_fast_methods:
+                name, mname, last = entry
+                cur = eng.method_stats(name, mname)
+                if cur is None:
+                    continue
+                dn = cur["count"] - last["count"]
+                status = self._method_status.get(f"{name}.{mname}")
+                if status is not None and dn > 0:
+                    avg_us = (
+                        cur["latency_ns_sum"] - last["latency_ns_sum"]
+                    ) / (dn * 1000.0)
+                    status.latency_rec.update_bulk(avg_us, dn)
+                    if status.limiter is not None:
+                        status.limiter.on_response_bulk(int(avg_us), dn)
+                derr = (cur["errors"] - last["errors"]) + (
+                    cur["rejected"] - last["rejected"]
+                )
+                if status is not None and derr > 0:
+                    status.errors << derr
+                if status is not None and status.limiter is not None:
+                    # re-push the (possibly moving) limit into the C++ gate
+                    eng.set_method_max_concurrency(
+                        name, mname, status.limiter.max_concurrency()
+                    )
+                entry[2] = cur
 
     def services(self) -> Dict[str, Service]:
         return dict(self._services)
@@ -379,8 +639,6 @@ class Server:
         # warm the runtime (bthread_setconcurrency, server.cpp:953-961)
         if self.options.num_threads:
             get_task_control()
-        if self.options.native_engine:
-            unported("the native C++ engine (native_engine)", 22)
         if self.options.has_builtin_services:
             self._add_builtin_services()
         if self.options.rpc_dump_dir:
@@ -403,6 +661,14 @@ class Server:
             except (OSError, ValueError) as e:
                 log_error("server SSL context failed: %r", e)
                 return -1
+        if self.options.native_engine and self._ssl_server_ctx is None:
+            rc = self._start_native(ep)
+            if rc <= 0:
+                return rc
+            # rc > 0: a semantic fallback (not TCP/UDS, auth) → Python
+        elif self.options.native_engine:
+            log_error("native_engine is plaintext-only; ssl_options set → "
+                      "serving on the Python transport")
         try:
             if ep.scheme == "uds":
                 fd = _pysocket.socket(_pysocket.AF_UNIX, _pysocket.SOCK_STREAM)
@@ -443,6 +709,255 @@ class Server:
         install_sigusr1_handler()
         self._maybe_install_graceful_quit()
         return 0
+
+    def _start_native(self, ep: EndPoint) -> int:
+        """Bring the C++ engine up on `ep`. Returns 0 = serving natively,
+        <0 = hard error, >0 = a semantic fallback to the Python transport
+        (an endpoint that is not TCP/UDS, first-message auth).  Raises
+        native.NativeEngineError when the engine cannot be built."""
+        if ep.scheme not in ("tcp", "uds"):
+            log_error("native_engine serves TCP/UDS only; falling back")
+            return 1
+        if self.options.auth is not None:
+            log_error("native_engine does not do first-message auth; "
+                      "falling back to the Python transport")
+            return 1
+        from incubator_brpc_tpu_torch import native
+
+        # no engine, no native server: NativeEngineError carries the
+        # compiler's message (the JAX package serves on Python instead)
+        native.require()
+        import os as _os
+
+        # default scales with the machine: extra epoll workers on a
+        # single shared core only add context switches
+        nworkers = self.options.num_threads or min(4, _os.cpu_count() or 4)
+        eng = native.NativeServerEngine(nworkers=nworkers)
+        eng.set_dispatch(self._native_fallback_frame)
+        # one port speaks every protocol (the InputMessenger inversion):
+        # the engine sniffs http/redis per connection, answers native
+        # fast paths in C, and hands everything else to the Python
+        # stack above (builtin pages, restful routing, RedisService)
+        eng.enable_protocols(
+            http=True, redis=self.options.redis_service is not None
+        )
+        if self.options.redis_service is not None and getattr(
+            self.options.redis_service, "native_kv", False
+        ):
+            eng.redis_enable_native_kv()
+        self._native_fast_methods = []  # (service, method, harvested snapshot)
+        for name, svc in self._services.items():
+            for path in getattr(svc, "native_http_fastpaths", list)():
+                # raw-body echo endpoints answered entirely in C (the
+                # reference http_server example's trivial handler shape)
+                eng.register_native_http_echo(path)
+            for mname, fast in getattr(svc, "native_fastpaths", dict)().items():
+                kind, attach = fast
+                if kind == "echo":
+                    eng.register_native_echo(name, mname, attach)
+                elif kind == "method":
+                    eng.register_native_method(name, mname, attach)
+                else:
+                    continue
+                self._native_fast_methods.append(
+                    [name, mname, {"count": 0, "latency_ns_sum": 0,
+                                   "rejected": 0, "errors": 0}]
+                )
+                # mirror the method's concurrency limit into the C++
+                # gate (fast-path rejections return EOVERCROWDED like
+                # the Python admission path; the auto limiter's moving
+                # limit is re-pushed on every stats harvest)
+                status = self._method_status.get(f"{name}.{mname}")
+                if status is not None and status.limiter is not None:
+                    eng.set_method_max_concurrency(
+                        name, mname, status.limiter.max_concurrency()
+                    )
+        try:
+            port = eng.listen(0 if ep.scheme == "uds" else ep.port, ep.host)
+        except OSError as e:
+            log_error("native listen on %s failed: %r", ep, e)
+            eng.destroy()
+            return -1
+        self._native_engine = eng
+        self._listen_ep = ep if ep.scheme == "uds" else EndPoint.tcp(ep.host, port)
+        self._running = True
+        if self.options.internal_port is not None and self.options.internal_port >= 0:
+            # the internal port is always TCP; a UDS main listener
+            # serves builtins on loopback (matches the non-native path)
+            rc = self._start_internal_port(
+                ep.host if ep.scheme == "tcp" else "127.0.0.1"
+            )
+            if rc != 0:
+                self.stop()
+                return rc
+        log_info("Server started on %s (native engine, %d workers)",
+                 self._listen_ep, nworkers)
+        self._maybe_install_graceful_quit()
+        return 0
+
+    def _native_fallback_frame(self, conn_id: int, proto: int, frame: bytes):
+        """Frames the C++ fast path didn't answer: full Python-stack
+        semantics. Runs on an engine worker thread — hand off to the
+        scheduler so slow handlers never stall the event loop.  proto
+        says which wire protocol the engine sniffed on the connection
+        (tpu_std / http / redis).
+
+        With usercode_in_dispatcher the handler runs INLINE on the
+        engine worker, inside the dispatch callback (same trade as the
+        Python transport's flag: no handoff latency, but a slow handler
+        stalls that worker's event loop).  Inline mode also makes the
+        fallback reply synchronous with the engine's cut — the reply
+        leaves before the dispatch returns — which is what the
+        reply-ordering tests rely on to be deterministic."""
+        from incubator_brpc_tpu_torch import native
+        from incubator_brpc_tpu_torch.runtime import scheduler
+
+        if proto == native.PROTO_HTTP:
+            fn = self._process_native_http
+        elif proto == native.PROTO_REDIS:
+            fn = self._process_native_redis
+        else:
+            fn = self._process_native_frame
+        if self.options.usercode_in_dispatcher:
+            try:
+                fn(conn_id, frame)
+            except Exception as e:  # noqa: BLE001 — never unwind into C
+                log_error("inline native fallback raised: %r", e)
+            return
+        scheduler.spawn(fn, conn_id, frame)
+
+    def _process_native_http(self, conn_id: int, frame: bytes):
+        """One complete HTTP request the engine's framer cut but no
+        native handler answered: run it through the full Python http
+        stack (restful routing, builtins, pb services) and write the
+        response back through the engine."""
+        from incubator_brpc_tpu_torch.protocols import ParseError
+        from incubator_brpc_tpu_torch.protocols import http as http_mod
+        from incubator_brpc_tpu_torch.utils.iobuf import IOBuf
+
+        if self._native_engine is None:
+            return
+        sock = _NativeConnSocket(self, conn_id)
+        buf = IOBuf(frame)
+        try:
+            res = http_mod.parse(buf, sock, False)
+        except Exception:  # noqa: BLE001
+            res = None
+        if res is None or res.error != ParseError.OK or res.message is None:
+            self._engine_op(lambda eng: eng.close_conn(conn_id))
+            self._engine_op(lambda eng: eng.py_done(conn_id))
+            return
+        try:
+            http_mod.process_request(res.message, sock)
+        except Exception as e:  # noqa: BLE001
+            log_error("native http fallback handler raised: %r", e)
+        finally:
+            # resume the paused connection (replies stay in order: the
+            # engine cut nothing since dispatching this frame)
+            self._engine_op(lambda eng: eng.py_done(conn_id))
+
+    def _process_native_redis(self, conn_id: int, frame: bytes):
+        """One complete RESP command the engine's native KV didn't
+        recognize: hand it to the Python RedisService."""
+        from incubator_brpc_tpu_torch.protocols import ParseError
+        from incubator_brpc_tpu_torch.protocols import redis as redis_mod
+        from incubator_brpc_tpu_torch.utils.iobuf import IOBuf
+
+        if self._native_engine is None:
+            return
+        sock = _NativeConnSocket(self, conn_id)
+        buf = IOBuf(frame)
+        try:
+            res = redis_mod.parse(buf, sock, False)
+        except Exception:  # noqa: BLE001
+            res = None
+        if res is None or res.error != ParseError.OK or res.message is None:
+            self._engine_op(lambda eng: eng.close_conn(conn_id))
+            self._engine_op(lambda eng: eng.py_done(conn_id))
+            return
+        try:
+            redis_mod.process_request(res.message, sock)
+        except Exception as e:  # noqa: BLE001
+            log_error("native redis fallback handler raised: %r", e)
+        finally:
+            self._engine_op(lambda eng: eng.py_done(conn_id))
+
+    def _process_native_frame(self, conn_id: int, frame: bytes):
+        import struct as _struct
+
+        from incubator_brpc_tpu_torch.protocols import tpu_std
+        from incubator_brpc_tpu_torch.protos import rpc_meta_pb2 as _pb
+        from incubator_brpc_tpu_torch.utils.iobuf import IOBuf
+
+        if self._native_engine is None:  # racing stop(): engine is gone
+            return
+
+        def _kill():  # garbage framing kills the conn, same as
+            # ParseResult.bad() on the Python transport; routed through
+            # _engine_op so a racing stop() can't hand us a freed engine
+            self._engine_op(lambda eng: eng.close_conn(conn_id))
+
+        # The engine coalesces every Python-fallback tpu_std frame it
+        # cut from ONE read burst into a single dispatch (engine.cpp
+        # cut_frames), so `frame` may hold N concatenated TRPC frames —
+        # a client submission-ring window arrives here whole, as one
+        # scheduler task.  Validate the framing of the whole burst
+        # first (any garbage kills the conn, exactly like the
+        # single-frame path did), then process in arrival order.
+        bounds = []
+        off = 0
+        total = len(frame)
+        while off < total:
+            if total - off < 12 or frame[off : off + 4] != b"TRPC":
+                _kill()
+                return
+            meta_size, body_size = _struct.unpack_from(">II", frame, off + 4)
+            end = off + 12 + meta_size + body_size
+            if end > total:
+                _kill()
+                return
+            bounds.append((off, meta_size, end))
+            off = end
+        if not bounds:
+            _kill()
+            return
+        burst = len(bounds) > 1
+        # server response ring: replies to a multi-frame window stage on
+        # this thread and flush as one writev burst after the window is
+        # fully dispatched (including inline-executed batch fan-outs)
+        ring_token = resp_ring_begin() if burst else False
+        if burst:
+            # batched-method rows in this burst defer into the
+            # collector and reach each Batcher as ONE accumulation
+            self._burst_begin()
+        try:
+            sock = _NativeConnSocket(self, conn_id)
+            for off, meta_size, end in bounds:
+                meta = _pb.RpcMeta()
+                try:
+                    meta.ParseFromString(frame[off + 12 : off + 12 + meta_size])
+                except Exception:  # noqa: BLE001
+                    _kill()
+                    return
+                body_size = end - off - 12 - meta_size
+                if meta.attachment_size < 0 or meta.attachment_size > body_size:
+                    _kill()
+                    return
+                payload = IOBuf(frame[off + 12 + meta_size : end])
+                msg = tpu_std.TpuStdMessage(meta, payload)
+                # rpcz stamps for the native fallback: the engine cut the
+                # frame off-GIL, so received≈parse_done≈enqueued at entry
+                now_us = _time.time_ns() // 1000
+                msg.received_us = msg.parse_done_us = msg.enqueued_us = now_us
+                tpu_std.process_request(msg, sock)
+        finally:
+            if burst:
+                try:
+                    self._burst_end()
+                finally:
+                    # flush AFTER _burst_end: inline-executed batch
+                    # handlers' responses also ride this window's burst
+                    resp_ring_flush(ring_token)
 
     def _start_internal_port(self, host: str) -> int:
         """Second acceptor for builtin services only (server.cpp:1042)."""
@@ -581,6 +1096,37 @@ class Server:
         if self._acceptor is not None:
             self._acceptor.stop_accept()
             self._acceptor = None
+        if self._native_engine is not None:
+            self.harvest_native_stats()  # final fold before teardown
+            # swap under the lifetime lock, then wait for in-flight
+            # _engine_op refs to drain before freeing the C++ object.
+            # New ops see None; old ops finish on the live engine.
+            with self._engine_cv:
+                eng, self._native_engine = self._native_engine, None
+                drained = self._engine_cv.wait_for(
+                    lambda: self._engine_refs == 0, timeout=5.0
+                )
+            if drained:
+                eng.destroy()
+            else:
+                # a ref-holder is wedged inside the C engine: freeing it
+                # now would be the exact use-after-free this guards
+                # against.  Stop the engine's threads but leak the
+                # object — bounded, and strictly safer.
+                log_error(
+                    "native engine refs not drained after 5s; stopping "
+                    "without destroy (leaking engine object)"
+                )
+                eng.stop()
+            # remove the UDS socket file we bound, or a later
+            # Python-transport restart on the path hits EADDRINUSE
+            if self._listen_ep is not None and self._listen_ep.scheme == "uds":
+                import os as _os
+
+                try:
+                    _os.unlink(self._listen_ep.host)
+                except OSError:
+                    pass
         if self._internal_acceptor is not None:
             self._internal_acceptor.stop_accept()
             self._internal_acceptor = None

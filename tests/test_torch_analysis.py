@@ -582,11 +582,11 @@ def test_every_port_chaos_site_is_documented_and_tested_by_a_port_test():
     allow = load_allowlist(os.path.join(PKG_ROOT, "analysis", "allowlist.json"))
     violations, _, _ = allow.split(out)
     assert violations == [], [f.format() for f in violations]
-    # the native engine's and its submission ring's sites are the only
-    # untested ones (item 22); named here by prefix, so that this file
-    # does not count as their test
-    assert {f.key for f in out} == {s for s in injector.SITES
-                                    if s.split(".")[0] in ("native", "ring")}
+    # every site has a port test now, the native engine's and its
+    # submission ring's among them (tests/test_torch_chaos.py)
+    assert [f.key for f in out] == []
+    assert {s for s in injector.SITES if s.split(".")[0] in ("native", "ring")} == {
+        "native.srv_read", "native.srv_write", "ring.submit"}
     # a site named only by a JAX test does not count for the port
     assert invariants.check_chaos_sites(
         {"socket.write": "x"}, "`socket.write`", "") != []
@@ -847,8 +847,9 @@ def witness_lane(tmp_path_factory):
 def test_witness_lane_runs_every_path(witness_lane):
     out = witness_lane["stdout"]
     assert " passed" in out and "failed" not in out and "error" not in out.lower(), out
-    # the TLS hop needs openssl, like tests/test_ssl.py; every other path ran
-    assert "7 passed" in out or ("6 passed" in out and "1 skipped" in out), out
+    # the TLS hop needs openssl, like tests/test_ssl.py; every other path
+    # ran, the native engine's Forward among them
+    assert "8 passed" in out or ("7 passed" in out and "1 skipped" in out), out
 
 
 def test_witness_lane_has_no_violation(witness_lane):

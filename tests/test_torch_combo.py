@@ -594,6 +594,8 @@ COPIED = {
     "client/combo.py": {15, 165, 779},
     "client/auth.py": set(),
     "client/naming_remote.py": set(),
+    "native/engine.cpp": set(),
+    "native/fastcall.c": set(),
     "observability/cluster.py": {4},
     "observability/trace.py": set(),
     "observability/trackme.py": set(),
@@ -603,6 +605,8 @@ COPIED = {
     "serialization/json2pb.py": set(),
     "serialization/mcpack.py": set(),
     "tools/__init__.py": set(),
+    "tools/parallel_http.py": set(),
+    "tools/rpc_press.py": set(),
     "tools/rpc_view.py": set(),
     "tools/task_stacks.py": set(),
     "utils/timeio.py": set(),
@@ -617,6 +621,10 @@ COPIED = {
 # analysis/invariants.py: chaos-site-test counts only tests/test_torch_*.py
 # (and the comment at JAX :17 reworded); analysis/witness.py: the state
 # lock is reentrant (and the docstring at JAX :21-22 names the plugin).
+# native/__init__.py: the engine and the extension build into a hash-named
+# directory with a per-process temporary, a missing engine raises
+# NativeEngineError where the JAX package degrades, the extension loads
+# under a dotted name, and call_boundary() says which boundary runs.
 DIVERGED = {
     "analysis/invariants.py": [("replace", 16, 17, 16, 17), ("replace", 83, 84, 83, 87)],
     "analysis/witness.py": [("replace", 20, 22, 20, 22), ("replace", 44, 45, 44, 47)],
@@ -625,6 +633,14 @@ DIVERGED = {
                           ("insert", 726, 726, 745, 754), ("replace", 798, 799, 826, 827)],
     "protocols/tpu_std.py": [("replace", 237, 238, 237, 238)],
     "observability/rpc_dump.py": [("replace", 50, 52, 50, 54), ("insert", 59, 59, 61, 62)],
+    "native/__init__.py": [('replace', 2, 7, 2, 10), ('replace', 8, 11, 11, 33), ('insert', 16, 16, 38, 39), ('insert', 17, 17, 40, 41),
+                          ('insert', 18, 18, 42, 43), ('replace', 21, 24, 46, 50), ('replace', 25, 31, 51, 56), ('replace', 50, 53, 75, 84),
+                          ('replace', 61, 64, 92, 93), ('insert', 86, 86, 115, 116), ('replace', 177, 180, 207, 208), ('replace', 207, 210, 235, 236),
+                          ('replace', 232, 235, 258, 259), ('replace', 247, 271, 271, 277), ('replace', 273, 277, 279, 291), ('replace', 278, 283, 292, 305),
+                          ('insert', 284, 284, 306, 333), ('replace', 285, 302, 334, 336), ('replace', 305, 310, 339, 344), ('insert', 311, 311, 345, 346),
+                          ('replace', 313, 314, 348, 353), ('replace', 325, 326, 364, 365), ('insert', 327, 327, 366, 377), ('replace', 336, 339, 386, 390),
+                          ('delete', 340, 342, 391, 391), ('replace', 493, 496, 542, 543), ('replace', 521, 524, 568, 569), ('replace', 720, 723, 765, 766),
+                          ('replace', 789, 792, 832, 833)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
 }
 

@@ -363,23 +363,35 @@ def test_start_ici_without_cuda_needs_a_device(monkeypatch):
 
 
 def test_unported_branches_raise_not_implemented(tmp_path):
-    # cluster channels are ported: a naming URL with a balancer inits
+    """Every branch this test pinned as unported is ported now; it holds
+    what each does instead.  No branch of the port raises
+    NotImplementedError for a missing item any more."""
+    from incubator_brpc_tpu_torch import native
+    from incubator_brpc_tpu_torch.client.ring import SubmissionRing
+
+    # cluster channels: a naming URL with a balancer inits
     ch = Channel()
     assert ch.init("list://127.0.0.1:1,127.0.0.1:2", "rr") == 0
+    # call_many and submission_ring run; on a channel that is not
+    # native, call_many degrades to one call_method per request
+    assert ch.call_many(None, []) == []
+    assert isinstance(ch.submission_ring(), SubmissionRing)
     ch.close()
-    # the native submission ring and the native engine are item 22;
-    # Channel TLS is ported (tests/test_torch_secure.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 22"):
-        ch.call_many(None, [])
-    with pytest.raises(NotImplementedError, match="item 22"):
-        ch.submission_ring()
     from incubator_brpc_tpu_torch.transport.ssl_helper import ChannelSSLOptions
 
     tls = Channel(ChannelOptions(ssl_options=ChannelSSLOptions()))
     assert tls.init("127.0.0.1:1") == 0
     tls.close()
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Channel(ChannelOptions(connection_type="native")).init("127.0.0.1:1")
+    # connection_type="native" runs over the port's own engine, built in
+    # the port's package; TLS on a native channel degrades to pooled
+    nat = Channel(ChannelOptions(connection_type="native"))
+    assert nat.init("127.0.0.1:1") == 0 and nat.options.connection_type == "native"
+    nat.close()
+    assert PORT_PKG in native.engine_path().parents
+    nat_tls = Channel(ChannelOptions(connection_type="native", ssl_options=ChannelSSLOptions()))
+    assert nat_tls.init("127.0.0.1:1") == 0
+    assert nat_tls.options.connection_type == "pooled"
+    nat_tls.close()
     # the combo channels and the authenticator are ported and exported
     # as the JAX package exports them
     import incubator_brpc_tpu_torch as port
@@ -390,11 +402,15 @@ def test_unported_branches_raise_not_implemented(tmp_path):
     assert port.PartitionChannel is combo.PartitionChannel
     assert port.Authenticator is auth.Authenticator
     assert port.AuthContext is auth.AuthContext
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Server(ServerOptions(native_engine=True)).start(0)
-    # TLS does not make the native engine ported: it still raises
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Server(ServerOptions(native_engine=True, ssl_options=object())).start(0)
+    # the native engine serves; with TLS it yields to the Python
+    # transport as the JAX package's does
+    srv = Server(ServerOptions(native_engine=True))
+    srv.add_service(EchoService())
+    try:
+        assert srv.start(0) == 0 and srv._native_engine is not None
+    finally:
+        srv.stop()
+    assert srv._native_engine is None
     # rpc_dump sampling and internal_port are ported: both start
     srv = Server(ServerOptions(rpc_dump_dir=str(tmp_path / "dump"), internal_port=0))
     srv.add_service(EchoService())
@@ -403,6 +419,7 @@ def test_unported_branches_raise_not_implemented(tmp_path):
         assert srv._rpc_dump_ctx is not None and srv.internal_port > 0
     finally:
         srv.stop()
+    assert not (PORT_PKG / "unported.py").exists()
 
 
 def test_hbm_ledger_and_census_on_cpu(fabric, echo_server):
@@ -575,6 +592,19 @@ from incubator_brpc_tpu_torch.utils import timeio
 assert not check.run_check(invariants=False)["violations"]
 device_witness.enable(); device_witness.disable()
 assert mcpack.loads(mcpack.dumps({"k": [1, "v"]})) == {"k": [1, "v"]}
+# the native engine: a native server and channel, a call_many window,
+# rpc_press --native and parallel_http against the same port
+from incubator_brpc_tpu_torch import native
+from incubator_brpc_tpu_torch.tools.parallel_http import fetch_all
+from incubator_brpc_tpu_torch.tools.rpc_press import press_native
+srv = Server(ServerOptions(native_engine=True)); srv.add_service(EchoService())
+assert srv.start(0) == 0 and srv._native_engine is not None
+ch = Channel(ChannelOptions(timeout_ms=30000, connection_type="native"))
+assert ch.init(f"127.0.0.1:{srv.port}") == 0
+assert len(echo_stub(ch).call_many("Echo", [EchoRequest(message="n")] * 4)) == 4
+assert press_native(f"127.0.0.1:{srv.port}", duration_s=0.1, report=lambda *_: None)["ok"] > 0
+assert fetch_all([f"127.0.0.1:{srv.port}/status"], 1, report=lambda *_: None)[1].ok == 1
+ch.close(); srv.stop()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "incubator_brpc_tpu"
              or m.startswith("incubator_brpc_tpu."))
@@ -606,6 +636,14 @@ def _imported_modules(path):
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     paths = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(paths) > 40
+    # the native engine's bindings are scanned like every module, and its
+    # C sources include nothing of either package
+    assert PORT_PKG / "native" / "__init__.py" in paths
+    for src in ("engine.cpp", "fastcall.c"):
+        includes = [ln for ln in (PORT_PKG / "native" / src).read_text().splitlines()
+                    if ln.startswith("#include")]
+        assert includes and not [ln for ln in includes
+                                 if "jax" in ln or "incubator_brpc_tpu" in ln]
     foreign = [
         (str(p.relative_to(ROOT)), mod)
         for p in paths

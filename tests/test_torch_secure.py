@@ -195,10 +195,26 @@ def test_plaintext_and_tls_channels_get_distinct_socket_map_keys():
     assert ctx is tls._ssl_params()[0]  # built once
 
 
-def test_native_engine_with_tls_still_raises_item_22():
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Server(ServerOptions(native_engine=True,
-                             ssl_options=ssl_helper.ServerSSLOptions())).start(0)
+def test_native_engine_with_tls_still_raises_item_22(tls_certs):
+    """The engine is ported (item 22) and plaintext: with ssl_options a
+    native_engine server serves TLS on the Python transport, as the JAX
+    package's does, and a TLS echo answers."""
+    srv = Server(ServerOptions(native_engine=True,
+                               ssl_options=_server_ssl(ssl_helper, tls_certs)))
+    srv.add_service(EchoService())
+    assert srv.start(0) == 0
+    ch = Channel(ChannelOptions(timeout_ms=5000, ssl_options=ssl_helper.ChannelSSLOptions(
+        ca_file=tls_certs["cert"])))
+    try:
+        assert srv._native_engine is None and srv._ssl_server_ctx is not None
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        c = Controller()
+        r = echo_stub(ch).Echo(c, EchoRequest(message="tls"))
+        assert not c.failed(), c.error_text()
+        assert r.message == "tls"
+    finally:
+        ch.close()
+        srv.stop()
 
 
 def test_bad_server_certificate_fails_start(tmp_path):

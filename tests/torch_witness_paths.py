@@ -10,7 +10,8 @@ pytest with both witnesses armed through the plugin,
 
 and reads the two reports.  Each test holds its own path's manifested
 pulls to the counts the device plane promises: no host view on an ICI
-hop, no spill on an ICI cache hit, one Forward pull per batch, one
+hop, no spill on an ICI cache hit, one Forward pull per batch (over
+ici:// and through the native engine), one
 token-sums pull per decode step, and one host view per frame on a TLS
 hop.
 """
@@ -129,6 +130,44 @@ def test_ps_put_get_forward_pull_once_per_batch():
         batches0, fwd0 = b.batches, pulls("ps.forward-pull")
         ys = _forwards(addr, xs)
         for x, y in zip(xs, ys):
+            np.testing.assert_allclose(y, x @ w.numpy(), rtol=1e-5, atol=1e-5)
+        assert pulls("ps.forward-pull") - fwd0 == b.batches - batches0 > 0
+    finally:
+        ch.close()
+        srv.stop()
+
+
+def test_native_forward_pull_once_per_batch():
+    """The native engine's path (chip_smoke.py's [witness] runs it on
+    the card): 8 concurrent async Forwards over one native channel with
+    batching on, each read burst's rows one submit_many; one
+    ps.forward-pull a batch, no other pull."""
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+
+    svc = PsService(device=CPU)
+    w = torch.randn((D, D), generator=torch.Generator().manual_seed(4))
+    svc.put_param("w", w)
+    srv = Server(ServerOptions(native_engine=True, enable_batching=True))
+    srv.add_service(svc)
+    assert srv.start(0) == 0
+    ch = Channel(ChannelOptions(timeout_ms=30000, connection_type="native"))
+    try:
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        rng = np.random.default_rng(6)
+        xs = [rng.standard_normal(D).astype(np.float32) for _ in range(8)]
+        b = srv.batcher("PsService.Forward")
+        batches0, fwd0 = b.batches, pulls("ps.forward-pull")
+        done = [threading.Event() for _ in xs]
+        ctrls = []
+        for i, x in enumerate(xs):
+            c = Controller()
+            c.request_attachment.append_user_data(x.tobytes())
+            ps_stub(ch).Forward(c, EchoRequest(message="w"), done=done[i].set)
+            ctrls.append(c)
+        assert all(e.wait(30) for e in done)
+        for x, c in zip(xs, ctrls):
+            assert not c.failed(), c.error_text()
+            y = np.frombuffer(c.response_attachment.to_bytes(), np.float32)
             np.testing.assert_allclose(y, x @ w.numpy(), rtol=1e-5, atol=1e-5)
         assert pulls("ps.forward-pull") - fwd0 == b.batches - batches0 > 0
     finally:
