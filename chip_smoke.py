@@ -171,8 +171,26 @@ file.  Phases, each fatal on failure:
              once per shard; one port answering HTTP and redis in C and
              by the Python fallback; a native.srv_write short-write plan
              under which every call ends once, answered or failed with an
-             ERPC code;
-13. witness — the analysis toolchain's runtime witnesses on the card,
+             ERPC code; call_many Get windows read each value from its
+             reply (a RingReply's attachment); the slowest 1% of the
+             p = 32 Forward rows printed with the dispatches (start, rows,
+             time) that ran while each waited, the dispatch gaps and the
+             GC pauses of the window;
+13. proto  — the other protocols on one port Server on one TCP port: a
+             PsService holding W at d = 6144 on the card (batching on), an
+             echo service, and the thrift, mongo, nshead and RTMP
+             adaptors.  A tpu_std Forward load at p = 8 (every y held to
+             float64 as [ps] holds it) runs while grpc, hulu, sofa, nova,
+             public, ubrpc, nshead_mcpack, thrift and mongo clients each
+             complete 100 calls on that port (and esp, which has no
+             server side, against a peer of its own), every reply
+             checked byte for byte (calls, qps, p50, p99 a protocol); a
+             4 MB gRPC message over TLS with the "h2" ALPN token; a
+             seeded FLV stream published and played back over RTMP, its
+             HLS segments, playlist and FLV archive equal to a plain
+             segmenter's and writer's; Server.stop() sending GOAWAY with
+             4 h2 streams in flight, each finishing with its reply;
+14. witness — the analysis toolchain's runtime witnesses on the card,
              in a child interpreter (this script with --witness-child)
              that arms the lock witness and the transfer guard before
              the port creates a lock: a seeded .item() of a CUDA tensor
@@ -193,7 +211,7 @@ file.  Phases, each fatal on failure:
              armed against disarmed, in ABBA turns; "unresolved" when the
              difference is inside the disarmed turns' spread) and the
              phase's wall time with the card's name and power limit;
-14. times  — each kernel's time at the main path's shapes beside its
+15. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and x.clone(): the whole-frame
              transmits and copy_blocks walked over distinct buffers (each
              frame cold in the 50 MB L2, as on the path) and run back to
@@ -211,7 +229,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 14 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 15 (transmit_ms) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
@@ -1438,13 +1456,14 @@ def phase_shard(torch, T, ps_summary):
     return counts, {"keyed_get_ms": keyed_get_ms}
 
 
-def closed_loop(stubs, req, x_bytes, inflight, duration):
+def closed_loop(stubs, req, x_bytes, inflight, duration, spans=None):
     """bench.py:2089-2150: Forward x_bytes[k % len] through the stubs in
     turn, each completion issuing the next call, so `inflight` calls
     stay outstanding for `duration`.  Returns (sorted latencies in us,
     (x index, y bytes) per call, wall s, the window's oldest-generation
     GC pauses in ms: one stalls every call in flight, so they set the
-    tail)."""
+    tail).  ``spans``, when given, gets each call's (issue, completion)
+    monotonic ns."""
     from incubator_brpc_tpu_torch.client.controller import Controller
 
     lats, ys, errs, lock = [], [], [], threading.Lock()
@@ -1474,8 +1493,11 @@ def closed_loop(stubs, req, x_bytes, inflight, duration):
                 if c.failed():
                     errs.append(c.error_text())
                 else:
-                    lats.append((time.monotonic_ns() - t0) // 1000)
+                    t1 = time.monotonic_ns()
+                    lats.append((t1 - t0) // 1000)
                     ys.append((idx, c.response_attachment.to_bytes()))
+                    if spans is not None:
+                        spans.append((t0, t1))
             if now < stop_at:
                 issue(slot, k + inflight)
                 return
@@ -1555,6 +1577,13 @@ class LruModel:
     @property
     def used(self):
         return sum(self.sizes.values())
+
+
+def _echo_message(cls, raw):
+    """The message field of a serialized EchoResponse."""
+    e = cls()
+    e.ParseFromString(raw)
+    return e.message
 
 
 def median_ms(ts):
@@ -3802,7 +3831,7 @@ def native_ps(torch, ps_summary):
     from incubator_brpc_tpu_torch.batching.policy import BatchPolicy
     from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
     from incubator_brpc_tpu_torch.client.controller import Controller
-    from incubator_brpc_tpu_torch.client.ring import RingFailure
+    from incubator_brpc_tpu_torch.client.ring import RingFailure, RingReply
     from incubator_brpc_tpu_torch.models import parameter_server as ps_mod
     from incubator_brpc_tpu_torch.models.parameter_server import (
         _FORWARD_KERNEL,
@@ -3878,7 +3907,21 @@ def native_ps(torch, ps_summary):
             up0, pull0 = counting.uploads, transfer_counts().get("ps.forward-pull", 0)
             ex0 = kernel_snapshot().get("ps.forward", {}).get("executions", 0)
             del bursts[:]
-            lats, ys, wall, _ = closed_loop(stubs, req, x_bytes, par, 1.0)
+            spans, flushes = [], []
+            if batcher is not None:  # each dispatch's (start, end, rows)
+                flush = batcher._flush  # looked up per dispatch
+
+                def timed(rows, _f=flush):
+                    t0 = time.monotonic_ns()
+                    _f(rows)
+                    flushes.append((t0, time.monotonic_ns(), len(rows)))
+
+                batcher._flush = timed
+            try:
+                lats, ys, wall, gcs = closed_loop(stubs, req, x_bytes, par, 1.0, spans)
+            finally:
+                if batcher is not None:
+                    del batcher._flush
             frames = list(bursts)
             uploads = counting.uploads - up0
             pulls = transfer_counts().get("ps.forward-pull", 0) - pull0
@@ -3908,6 +3951,7 @@ def native_ps(torch, ps_summary):
                 out["burst_frames"] = hist
                 out["mean_batch"] = rows / max(batches, 1)
                 check(batches < rows, f"{batches} batches for {rows} rows: nothing coalesced")
+                out["tail"] = native_tail(spans, flushes, gcs, bursts=frames)
         wall_us, busy_us, _ = device_profile(torch, lambda: closed_loop(stubs, req, x_bytes, 32, 0.3))
         check(busy_us > 0, "the profiler saw no CUDA work in the native Forward window")
         out["busy"] = 100 * busy_us / wall_us
@@ -3922,31 +3966,18 @@ def native_ps(torch, ps_summary):
         for k, v in zip(keys, vals):
             svc.put_param(k, v)
         want = {k: v.cpu().numpy().tobytes() for k, v in zip(keys, vals)}
-        replies = []
-        finish = ch._finish_native_response
-
-        def recording(ctrl, *args):  # the ring drops a reply's attachment
-            finish(ctrl, *args)
-            replies.append((ctrl.__dict__.get("response_bytes"),
-                            ctrl.response_attachment.to_bytes()))
-
-        ch._finish_native_response = recording
         gb = srv.batcher("PsService.Get")
         win_s, per_s, batches_per = [], [], []
         packed = [EchoRequest(message=k).SerializeToString() for k in keys]
         for rep in range(NATIVE_WINDOW_REPS):
-            del replies[:]
             b0, seen0 = gb.batches, gb.max_batch_seen
             t0 = time.perf_counter()
             res = stub.call_many("Get", packed)
             win_s.append(time.perf_counter() - t0)
             batches_per.append(gb.batches - b0)
             check(not any(isinstance(r, RingFailure) for r in res), f"Get window: {res[:2]}")
-            got = {}
-            for m, att in replies:
-                e = EchoResponse()
-                e.ParseFromString(m)
-                got[e.message] = att
+            check(all(isinstance(r, RingReply) for r in res), "Get window: a reply lost its value")
+            got = {_echo_message(EchoResponse, r): r.attachment.to_bytes() for r in res}
             check(got == want, f"Get window rep {rep}: {len(got)} replies, values differ")
             t0 = time.perf_counter()
             for k in keys:
@@ -3955,7 +3986,6 @@ def native_ps(torch, ps_summary):
                 check(not c.failed() and c.response_attachment.to_bytes() == want[k],
                       f"per-call Get {k}: {c.error_text()}")
             per_s.append(time.perf_counter() - t0)
-        del ch._finish_native_response
         check(gb.max_batch_seen >= NATIVE_WINDOW // 2 and max(batches_per) <= 2,
               f"Get window: max_batch_seen {gb.max_batch_seen}, batches a window {batches_per}")
         out["get_window_ms"], out["get_per_call_ms"] = median_ms(win_s), median_ms(per_s)
@@ -3972,12 +4002,44 @@ def native_ps(torch, ps_summary):
     return out
 
 
+def native_tail(spans, flushes, gcs, bursts, top=0.01, shown=6):
+    """Where the Forward's slowest 1% of rows spent their time: for each
+    (at most ``shown``, slowest first) its issue and completion times
+    from the window's start, and the batcher dispatches that ran while it
+    waited (start, rows, ms), beside the window's dispatch sizes and
+    gaps and its oldest-generation GC pauses.  Printed as one line."""
+    if not spans or not flushes:
+        return {}
+    t_base = min(t0 for t0, _ in spans)
+    slow = sorted(spans, key=lambda s: s[0] - s[1])[:max(1, int(len(spans) * top))]
+    starts = sorted(f[0] for f in flushes)
+    gaps = [(b - a) / 1e6 for a, b in zip(starts, starts[1:])]
+    rows = []
+    for t0, t1 in slow[:shown]:
+        inside = [f for f in flushes if f[1] >= t0 and f[0] <= t1]
+        rows.append({"issued_ms": round((t0 - t_base) / 1e6, 3),
+                     "done_ms": round((t1 - t_base) / 1e6, 3),
+                     "dispatches": [[round((a - t_base) / 1e6, 3), n, round((b - a) / 1e6, 3)]
+                                    for a, b, n in inside]})
+    sizes = [n for _, _, n in flushes]
+    tail = {"slow_rows": len(slow), "of_rows": len(spans),
+            "slow_us_min": min(t1 - t0 for t0, t1 in slow) // 1000,
+            "dispatches": len(flushes), "rows_per_dispatch_mean": sum(sizes) / len(sizes),
+            "rows_per_dispatch_max": max(sizes),
+            "dispatch_ms_max": max((b - a) / 1e6 for a, b, _ in flushes),
+            "dispatch_gap_ms_max": max(gaps) if gaps else 0.0,
+            "gc_pauses_ms": [round(g, 3) for g in gcs], "engine_bursts": len(bursts),
+            "slowest": rows}
+    print(f"[native] tail of Forward p32 on: {json.dumps(tail)}")
+    return tail
+
+
 def native_shard(torch, shard_summary):
     """Four native PsService shard servers on the card behind
     sharded_ps_channel over native sub-channels: a window of keyed Gets
     crosses into C once per shard."""
     from incubator_brpc_tpu_torch.client.channel import ChannelOptions
-    from incubator_brpc_tpu_torch.client.ring import RingFailure, fanout_log
+    from incubator_brpc_tpu_torch.client.ring import RingFailure, RingReply, fanout_log
     from incubator_brpc_tpu_torch.models.parameter_server import (
         PsService,
         ps_stub,
@@ -4006,19 +4068,8 @@ def native_shard(torch, shard_summary):
         for k, v in zip(keys, vals):  # each value on its owner's card store
             svcs[sh.shard_of(k)].put_param(k, v)
         want = {k: v.cpu().numpy().tobytes() for k, v in zip(keys, vals)}
-        replies = []
-        for part in sh.partitions():
-            finish = part._finish_native_response
-
-            def recording(ctrl, *args, _f=finish):
-                _f(ctrl, *args)
-                replies.append((ctrl.__dict__.get("response_bytes"),
-                                ctrl.response_attachment.to_bytes()))
-
-            part._finish_native_response = recording
         win_s = []
         for rep in range(3):
-            del replies[:]
             before = fanout_log.counters()
             t0 = time.perf_counter()
             res = ps_stub(sh).call_many("Get", [EchoRequest(message=k) for k in keys])
@@ -4029,11 +4080,8 @@ def native_shard(torch, shard_summary):
             check(cross == SHARDS and fb == 0,
                   f"shard window: {cross} crossings, {fb} per-call fallbacks")
             check(not any(isinstance(r, RingFailure) for r in res), f"shard window: {res[:2]}")
-            got = {}
-            for m, att in replies:
-                e = EchoResponse()
-                e.ParseFromString(m)
-                got[e.message] = att
+            check(all(isinstance(r, RingReply) for r in res), "shard window: a reply lost its value")
+            got = {_echo_message(EchoResponse, r): r.attachment.to_bytes() for r in res}
             check(got == want, f"shard window rep {rep}: values differ from their Puts")
         out["window_ms"] = median_ms(win_s)
         print(f"[native] sharded_ps_channel over {SHARDS} native shard servers on {dev} "
@@ -4206,6 +4254,517 @@ def phase_native(torch, T, smi, build, ps_summary, shard_summary):
     out["s"] = time.perf_counter() - t_phase
     print(f"[native] phase {out['s']:.1f} s on {smi}; launches {counts} (the engine's TCP "
           f"frames carry host bytes)")
+    return counts, out
+
+
+PROTO_CALLS = 100  # each protocol client's calls, under the Forward load
+PROTO_FORWARD_P = 8  # the tpu_std Forward load on the same port
+PROTO_TLS_MESSAGE = 4 << 20  # one gRPC message over TLS, through h2 flow control
+PROTO_GOAWAY_STREAMS = 4  # h2 streams in flight when Server.stop() sends GOAWAY
+PROTO_HLS_TARGET_S = 1.0
+PROTO_MEDIA_SECONDS = 4.0
+# the pb protocols a port channel speaks to the server (esp has no server
+# side in either package: its client calls an esp peer of its own)
+PROTO_CHANNELS = ["grpc", "hulu_pbrpc", "sofa_pbrpc", "nova_pbrpc", "public_pbrpc", "ubrpc",
+                  "nshead_mcpack"]
+
+
+def proto_nshead_router():
+    """A server's nshead adaptor owns all of its nshead traffic, so the
+    one port that faces nova, public, ubrpc and nshead_mcpack clients
+    routes each frame by its head and body: the nova provider, a public
+    envelope naming a service, a ubrpc mcpack ``content`` list, else an
+    nshead_mcpack body."""
+    from incubator_brpc_tpu_torch.protocols import legacy
+    from incubator_brpc_tpu_torch.protos import legacy_meta_pb2
+    from incubator_brpc_tpu_torch.serialization import mcpack
+
+    class Router(legacy.NsheadService):
+        def __init__(self):
+            self.ubrpc, self.mcpack = legacy.UbrpcAdaptor(), legacy.NsheadMcpackAdaptor()
+            self.routed = {"nova": 0, "public": 0, "ubrpc": 0, "nshead_mcpack": 0}
+
+        def process(self, controller, request):
+            body = bytes(request.body.as_view())
+            sock = controller._server_socket
+            if request.provider.startswith(b"nova-pbrpc"):
+                self.routed["nova"] += 1
+                return legacy._nova_process_request(request, sock)
+            env = legacy_meta_pb2.PublicPbrpcRequest()
+            try:
+                env.ParseFromString(body)
+                public = bool(env.requestBody) and bool(env.requestBody[0].service)
+            except Exception:  # noqa: BLE001 - not a public envelope
+                public = False
+            if public:
+                self.routed["public"] += 1
+                return legacy._public_process_request(request, sock, env)
+            try:
+                doc = mcpack.loads(body)
+            except Exception:  # noqa: BLE001 - not an mcpack object
+                doc = None
+            if isinstance(doc, dict) and "content" in doc:
+                self.routed["ubrpc"] += 1
+                return self.ubrpc.process(controller, request)
+            self.routed["nshead_mcpack"] += 1
+            return self.mcpack.process(controller, request)
+
+    return Router()
+
+
+def proto_thrift_service():
+    from incubator_brpc_tpu_torch.protocols import thrift
+
+    svc = thrift.ThriftService()
+
+    def echo(ctrl, fields, done):
+        msg = fields.get(1, (thrift.T_STRING, b""))[1]
+        done({0: (thrift.T_STRUCT, {1: (thrift.T_STRING, msg), 2: (thrift.T_I32, len(msg))})})
+
+    svc.add_method("Echo", echo)
+    return svc
+
+
+def proto_mongo_adaptor():
+    from incubator_brpc_tpu_torch.protocols import mongo
+
+    class Adaptor(mongo.MongoServiceAdaptor):
+        def handle(self, controller, doc):
+            if "echo" in doc:
+                return {"ok": 1.0, "you_sent": doc["echo"]}
+            return {"ok": 0.0, "errmsg": "unknown command", "code": 59}
+
+    return Adaptor()
+
+
+class EspPeer:
+    """An esp-speaking peer on its own port: answers each frame with its
+    body reversed (esp is a client protocol in both packages)."""
+
+    def __init__(self):
+        import socket
+
+        self.ls = socket.socket()
+        self.ls.bind(("127.0.0.1", 0))
+        self.ls.listen(4)
+        self.port = self.ls.getsockname()[1]
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        while True:
+            try:
+                conn, _ = self.ls.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._conn, args=(conn,), daemon=True).start()
+
+    @staticmethod
+    def _conn(conn):
+        import struct
+
+        def read(n):
+            out = b""
+            while len(out) < n:
+                got = conn.recv(n - len(out))
+                if not got:
+                    raise EOFError
+                out += got
+            return out
+
+        try:
+            while True:
+                frm, to, msg, msg_id, blen = struct.unpack("<QQIQi", read(32))
+                reply = read(blen)[::-1]
+                conn.sendall(struct.pack("<QQIQi", to, frm, msg, msg_id, len(reply)) + reply)
+        except (EOFError, OSError):
+            conn.close()
+
+    def close(self):
+        self.ls.close()
+
+
+def proto_message(rng, n):
+    """A seeded printable message of n characters."""
+    return "".join(chr(c) for c in rng.randint(0x20, 0x7F, size=n))
+
+
+def proto_client(proto, port, esp_port, seed):
+    """One protocol client's PROTO_CALLS calls against the port (esp:
+    against its peer), every reply checked byte for byte.  Returns the
+    sorted latencies in us and the wall time."""
+    import socket
+    import struct
+
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import echo_stub
+    from incubator_brpc_tpu_torch.protocols import legacy, mongo, thrift
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
+    from incubator_brpc_tpu_torch.server.service import MethodSpec
+
+    rng = np.random.RandomState(seed)
+    lats = []
+    t_start = time.perf_counter()
+    if proto == "mongo":
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+            for i in range(PROTO_CALLS):
+                doc = {"echo": {"s": proto_message(rng, 1 + i % 200), "i": i}}
+                want = mongo.pack_op_msg(i + 1, {"ok": 1.0, "you_sent": doc["echo"]})
+                t0 = time.perf_counter_ns()
+                s.sendall(mongo.pack_op_msg(0, doc, request_id=i + 1))
+                data = b""
+                while len(data) < 4 or len(data) < struct.unpack_from("<i", data)[0]:
+                    got = s.recv(65536)
+                    check(bool(got), "mongo: the server closed the connection")
+                    data += got
+                lats.append((time.perf_counter_ns() - t0) // 1000)
+                check(data[:4] == want[:4] and data[8:] == want[8:],
+                      f"mongo reply {i} differs from its expectation")
+        return sorted(lats), time.perf_counter() - t_start
+    ch = Channel(ChannelOptions(protocol=proto, timeout_ms=30000,
+                                connection_group=f"proto-{proto}"))
+    check(ch.init(f"127.0.0.1:{esp_port if proto == 'esp' else port}") == 0,
+          f"{proto}: channel init failed")
+    try:
+        stub = echo_stub(ch)
+        tstub = thrift.ThriftStub(ch) if proto == "thrift" else None
+        espec = MethodSpec("esp", "msg", legacy.EspMessage, bytes)
+        for i in range(PROTO_CALLS):
+            text = proto_message(rng, 1 + i % 200)
+            c = Controller()
+            t0 = time.perf_counter_ns()
+            if proto == "thrift":
+                res = tstub.call(c, "Echo", {1: (thrift.T_STRING, text.encode())})
+                ok = not c.failed() and res == {0: (thrift.T_STRUCT, {
+                    1: (thrift.T_STRING, text.encode()), 2: (thrift.T_I32, len(text))})}
+            elif proto == "esp":
+                body = text.encode()
+                ch.call_method(espec, c, legacy.EspMessage(to=9, msg=1, body=body), None)
+                ok = not c.failed() and c.response_attachment.to_bytes() == body[::-1]
+            else:
+                r = stub.Echo(c, EchoRequest(message=text, code=i))
+                ok = (not c.failed() and r.SerializeToString()
+                      == EchoResponse(message=text, code=i).SerializeToString())
+            lats.append((time.perf_counter_ns() - t0) // 1000)
+            check(ok, f"{proto} reply {i} differs from its request: {c.error_text()}")
+    finally:
+        ch.close()
+    return sorted(lats), time.perf_counter() - t_start
+
+
+def proto_stream(rtmp, seed):
+    """A seeded synthetic A/V stream as RTMP messages: onMetaData, the AVC
+    and AAC sequence headers, 25 fps H.264 frames (a keyframe each
+    second, NALs of random size and bytes) and an AAC frame every 23 ms,
+    in timestamp order."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    sps, pps = b"\x67\x42\x00\x1e\xab", b"\x68\xce\x06\xe2"
+    avcc = (b"\x01\x42\x00\x1e\xff\xe1" + struct.pack(">H", len(sps)) + sps
+            + b"\x01" + struct.pack(">H", len(pps)) + pps)
+    msgs = [rtmp.RtmpMessage(rtmp.MSG_DATA_AMF0, 1, 0, rtmp.amf0_encode(
+                "onMetaData", {"width": 640.0, "height": 360.0, "framerate": 25.0})),
+            rtmp.RtmpMessage(rtmp.MSG_VIDEO, 1, 0, b"\x17\x00\x00\x00\x00" + avcc),
+            rtmp.RtmpMessage(rtmp.MSG_AUDIO, 1, 0, b"\xaf\x00" + bytes([0b00010010, 0b00010000]))]
+    frames = []
+    ms_end = int(PROTO_MEDIA_SECONDS * 1000)
+    for i, ms in enumerate(range(0, ms_end, 40)):
+        key = i % 25 == 0
+        nal = (b"\x65" if key else b"\x41") + rng.randint(0, 256, int(rng.randint(20, 3000))).astype(
+            np.uint8).tobytes()
+        frames.append((ms, 0, rtmp.MSG_VIDEO, (b"\x17" if key else b"\x27") + b"\x01\x00\x00\x00"
+                       + struct.pack(">I", len(nal)) + nal))
+    for ms in range(0, ms_end, 23):
+        frames.append((ms, 1, rtmp.MSG_AUDIO, b"\xaf\x01" + rng.randint(
+            0, 256, int(rng.randint(8, 400))).astype(np.uint8).tobytes()))
+    frames.sort()
+    return msgs + [rtmp.RtmpMessage(t, 1, ms, body) for ms, _, t, body in frames]
+
+
+def proto_rtmp(port, gw):
+    """Publish the seeded stream as FLV tags over RTMP, play it back, and
+    hold the gateway's HLS segments and FLV archive to a plain HLS
+    segmenter and FLV writer fed the same messages."""
+    from incubator_brpc_tpu_torch.protocols import flv, rtmp, ts
+
+    msgs = proto_stream(rtmp, SEED)
+    # the published stream is an FLV file: written, then read back as tags
+    w = flv.FlvWriter()
+    for m in msgs:
+        w.write_message(m)
+    reader = flv.FlvReader()
+    reader.feed(w.getvalue())
+    tags = []
+    while (t := reader.read_message()) is not None:
+        tags.append(t)
+    check([(t.type_id, t.timestamp, t.payload) for t in tags]
+          == [(m.type_id, m.timestamp, m.payload) for m in msgs], "the FLV file lost a tag")
+    got, done = [], threading.Event()
+
+    def on_media(msg):
+        got.append((msg.type_id, msg.timestamp, msg.payload))
+        if len(got) >= len(tags):
+            done.set()
+
+    t0 = time.perf_counter()
+    sub = rtmp.RtmpClient("127.0.0.1", port, app="live", on_media=on_media)
+    pub = rtmp.RtmpClient("127.0.0.1", port, app="live")
+    try:
+        sub.play(sub.create_stream(), "room")
+        psid = pub.create_stream()
+        pub.publish(psid, "room")
+        for t in tags:
+            pub.write_frame(psid, t.type_id, t.timestamp, t.payload)
+        check(done.wait(30), f"RTMP play got {len(got)} of {len(tags)} messages")
+    finally:
+        pub.close()
+        sub.close()
+    relay_s = time.perf_counter() - t0
+    check(got == [(t.type_id, t.timestamp, t.payload) for t in tags],
+          "RTMP play returned other messages than were published")
+    plain = ts.HlsSegmenter(target_duration_s=PROTO_HLS_TARGET_S, window=64)
+    plain_flv = flv.FlvWriter()
+    for t in tags:
+        plain.on_message(t)
+        try:
+            plain_flv.write_message(t)
+        except ValueError:
+            pass
+    deadline = time.monotonic() + 10
+    while len(gw.flv_snapshot("room")) < len(plain_flv.getvalue()) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    gw.finish("room")
+    plain.finish_segment()
+    segs = [(s.seq, gw.segment("room", s.seq)) for s in plain.segments]
+    check(all(seg == bytes(s.data) for (_, seg), s in zip(segs, plain.segments)),
+          "an HLS segment differs from the plain segmenter's")
+    check(gw.playlist("room", end=True) == plain.playlist(end=True), "the HLS playlists differ")
+    check(gw.flv_snapshot("room") == plain_flv.getvalue(), "the FLV archive differs")
+    for _, seg in segs:
+        check(len(seg) % 188 == 0 and seg[0] == 0x47 and (seg[1] & 0x1F, seg[2]) == (0, 0),
+              "an HLS segment does not open with a PAT packet")
+    return {"messages": len(tags), "segments": len(segs), "relay_ms": relay_s * 1e3,
+            "segment_bytes": sum(len(s) for _, s in segs)}
+
+
+def proto_tls():
+    """gRPC over TLS: ALPN settles on "h2", and one 4 MB message goes
+    through h2 flow control and back."""
+    import socket
+    import ssl
+    import tempfile
+
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.transport import ssl_helper
+
+    d = tempfile.mkdtemp(prefix="proto-tls-")
+    cert, key = f"{d}/cert.pem", f"{d}/key.pem"
+    made = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+         "-out", cert, "-days", "2", "-subj", "/CN=localhost",
+         "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        capture_output=True, text=True, timeout=60)
+    check(made.returncode == 0, f"openssl could not make a certificate: {made.stderr[-300:]}")
+    srv = Server(ServerOptions(ssl_options=ssl_helper.ServerSSLOptions(
+        default_cert=ssl_helper.CertInfo(certificate=cert, private_key=key))))
+    srv.add_service(EchoService())
+    check(srv.start(0) == 0, "the TLS server did not start")
+    ch = Channel(ChannelOptions(protocol="grpc", timeout_ms=60000, ssl_options=(
+        ssl_helper.ChannelSSLOptions(ca_file=cert, sni_name="localhost", verify_hostname=True))))
+    try:
+        ctx = ssl.create_default_context(cafile=cert)
+        ctx.set_alpn_protocols(["h2"])
+        with socket.create_connection(("127.0.0.1", srv.port), timeout=10) as raw:
+            with ctx.wrap_socket(raw, server_hostname="localhost") as tls:
+                alpn = tls.selected_alpn_protocol()
+        check(alpn == "h2", f"ALPN settled on {alpn!r}, not h2")
+        check(ch.init(f"127.0.0.1:{srv.port}") == 0, "gRPC TLS channel init failed")
+        text = proto_message(np.random.RandomState(SEED), PROTO_TLS_MESSAGE)
+        c = Controller()
+        t0 = time.perf_counter()
+        r = echo_stub(ch).Echo(c, EchoRequest(message=text, code=4))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(not c.failed() and r.message == text and r.code == 4,
+              f"the 4 MB gRPC message over TLS came back otherwise: {c.error_text()}")
+    finally:
+        ch.close()
+        srv.stop()
+    return {"alpn": alpn, "ms": ms, "bytes": PROTO_TLS_MESSAGE}
+
+
+def proto_goaway(srv):
+    """Server.stop() with h2 streams in flight: it sends GOAWAY, and the
+    streams it covers finish with their replies."""
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import echo_stub
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+
+    ch = Channel(ChannelOptions(protocol="grpc", timeout_ms=10000, max_retry=0,
+                                connection_group="proto-goaway"))
+    check(ch.init(f"127.0.0.1:{srv.port}") == 0, "gRPC channel init failed")
+    stub = echo_stub(ch)
+    c0 = Controller()
+    check(stub.Echo(c0, EchoRequest(message="warm")).message == "warm", "gRPC warm-up failed")
+    results = [None] * PROTO_GOAWAY_STREAMS
+
+    def call(i):
+        c = Controller()
+        r = stub.Echo(c, EchoRequest(message=f"inflight{i}", sleep_us=400_000))
+        results[i] = (c.failed(), r.message if not c.failed() else c.error_text())
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(PROTO_GOAWAY_STREAMS)]
+    for t in threads:
+        t.start()
+    time.sleep(0.15)  # the streams are in their handlers now
+    sent = [s for s in srv._acceptor.connections()
+            if s is not None and s.h2_ctx is not None and not s.failed]
+    t0 = time.perf_counter()
+    srv.stop()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    for t in threads:
+        t.join(15)
+    ch.close()
+    check(sent and all(s.h2_ctx.goaway_sent for s in sent),
+          "Server.stop() sent no GOAWAY on its h2 connections")
+    check(results == [(False, f"inflight{i}") for i in range(PROTO_GOAWAY_STREAMS)],
+          f"h2 streams in flight across Server.stop(): {results}")
+    return {"streams": PROTO_GOAWAY_STREAMS, "stop_ms": stop_ms}
+
+
+def phase_proto(torch, T, smi, ps_summary, dev=None):
+    """[proto]: one port Server on one TCP port with a PsService holding
+    W at d = 6144 on the card (batching on), an echo service, and the
+    thrift, mongo, nshead and RTMP adaptors.  A tpu_std Forward load at
+    p = 8 runs while every other protocol's client completes its calls;
+    then gRPC over TLS, RTMP publish/play with the HLS remux, and
+    Server.stop()'s GOAWAY drain.  Returns the path's launch counts (the
+    protocols carry host bytes: none)."""
+    import numpy as np
+
+    from incubator_brpc_tpu_torch.models.echo import EchoService
+    from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.protocols.media_gateway import MediaGatewayService
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+
+    t_phase = time.perf_counter()
+    dev, d = dev or card(torch), PS_DIM
+    T.reset_launch_counts()
+    router, gw = proto_nshead_router(), MediaGatewayService(
+        target_duration_s=PROTO_HLS_TARGET_S, window=64)
+    srv = Server(ServerOptions(
+        enable_batching=True, nova_service=EchoService(), nshead_service=router,
+        thrift_service=proto_thrift_service(), mongo_service_adaptor=proto_mongo_adaptor(),
+        rtmp_service=gw))
+    svc = PsService(device=dev)
+    srv.add_service(EchoService())
+    srv.add_service(svc)
+    check(srv.start(0) == 0, "the [proto] server did not start")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = torch.randn((d, d), generator=g, device=dev) / d ** 0.5
+    svc.put_param("w", W)
+    esp = EspPeer()
+    chs = []
+    out = {"protocols": {}}
+    stopped = False
+    try:
+        xs = np.random.RandomState(SEED + 11).randn(64, d).astype(np.float32)
+        x_bytes = [x.tobytes() for x in xs]
+        stubs = []
+        for i in range(PROTO_FORWARD_P):
+            ch = Channel(ChannelOptions(timeout_ms=30000, connection_group=f"proto-fwd{i}"))
+            check(ch.init(f"127.0.0.1:{srv.port}") == 0, "tpu_std channel init failed")
+            chs.append(ch)
+            stubs.append(ps_stub(ch))
+        req = EchoRequest(message="w")
+        closed_loop(stubs, req, x_bytes, PROTO_FORWARD_P, 0.2)  # warm the product
+        clients = PROTO_CHANNELS + ["esp", "thrift", "mongo"]
+        results, errors_ = {}, []
+
+        def run(proto, seed):
+            try:
+                results[proto] = proto_client(proto, srv.port, esp.port, seed)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors_.append((proto, e))
+
+        load = {}
+        loader = threading.Thread(target=lambda: load.update(res=closed_loop(
+            stubs, req, x_bytes, PROTO_FORWARD_P, 4.0)))
+        loader.start()
+        time.sleep(0.2)  # the load is on
+        workers = [threading.Thread(target=run, args=(p, SEED + i)) for i, p in enumerate(clients)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(120)
+        loader.join(120)
+        check(not errors_, f"[proto] clients failed: {errors_[:2]}")
+        check(set(results) == set(clients), f"[proto] clients missing: {set(clients) - set(results)}")
+        check("res" in load, "the Forward load did not finish")
+        lats, ys, wall, _ = load["res"]
+        x_dev = torch.from_numpy(xs).to(dev).double()
+        ref, scale = x_dev @ W.double(), x_dev.abs() @ W.abs().double()
+        idx = torch.tensor([i for i, _ in ys], device=dev)
+        got = torch.from_numpy(np.frombuffer(bytearray(b"".join(y for _, y in ys)),
+                                             np.float32).reshape(len(ys), d)).to(dev)
+        bad, worst = past_f64(got, ref[idx], scale[idx])
+        check(bad == 0, f"[proto] Forward: {bad} outputs off by up to {worst:.3g} of |x| @ |W|")
+        out["forward"] = (len(lats) / wall, pct(lats, 0.5), pct(lats, 0.99), len(lats))
+        uq, u50, u99 = ps_summary.get((32, "on"), (0.0, 0, 0))
+        print(f"[proto] tpu_std Forward p{PROTO_FORWARD_P} batching on, on the shared port "
+              f"beside {len(clients)} protocol clients: {out['forward'][0]:.1f} qps, p50 "
+              f"{out['forward'][1]} us, p99 {out['forward'][2]} us over {len(lats)} calls, every "
+              f"y within {PS_RTOL:g} of |x| @ |W| of float64 (max {worst:.3g}); [ps] ici:// p32 on "
+              f"{uq:.1f} qps, p50 {u50} us, p99 {u99} us")
+        for proto in clients:
+            plats, pwall = results[proto]
+            row = {"calls": len(plats), "qps": len(plats) / pwall, "p50_us": pct(plats, 0.5),
+                   "p99_us": pct(plats, 0.99)}
+            out["protocols"][proto] = row
+            print(f"[proto] {proto:13}: {row['calls']} calls, {row['qps']:8.1f} qps, p50 "
+                  f"{row['p50_us']} us, p99 {row['p99_us']} us under the Forward load, every "
+                  f"reply byte-equal to its expectation"
+                  + (" (esp has no server side: its own peer)" if proto == "esp" else ""))
+        check(all(v == PROTO_CALLS for v in router.routed.values()),
+              f"the nshead router saw {router.routed}, not {PROTO_CALLS} of each")
+        out["tls"] = proto_tls()
+        print(f"[proto] gRPC over TLS: ALPN {out['tls']['alpn']}, one {PROTO_TLS_MESSAGE} B "
+              f"message through h2 flow control and back in {out['tls']['ms']:.1f} ms")
+        out["rtmp"] = proto_rtmp(srv.port, gw)
+        print(f"[proto] RTMP: {out['rtmp']['messages']} messages of a seeded FLV stream published "
+              f"and played back byte-equal in {out['rtmp']['relay_ms']:.1f} ms; "
+              f"{out['rtmp']['segments']} HLS segments ({out['rtmp']['segment_bytes']} B), the "
+              f"playlist and the FLV archive equal to a plain segmenter's and writer's")
+        out["goaway"] = proto_goaway(srv)
+        stopped = True
+        print(f"[proto] Server.stop() with {PROTO_GOAWAY_STREAMS} h2 streams in flight: GOAWAY "
+              f"sent, every stream finished with its reply; stop took "
+              f"{out['goaway']['stop_ms']:.1f} ms")
+    finally:
+        for ch in chs:
+            ch.close()
+        esp.close()
+        if not stopped:
+            srv.stop()
+    counts = dict(T.launches)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[proto] phase {out['s']:.1f} s on {smi}; launches {counts} (the protocols carry "
+          f"host bytes)")
+    print(json.dumps({"proto": out["protocols"]}))
     return counts, out
 
 
@@ -5051,14 +5610,17 @@ def main() -> int:
     mesh_counts, _ = phase_mesh(torch, T, ps_summary)
     native_counts, _ = phase_native(torch, T, smi, native_build, ps_summary, shard_summary)
     check(not any(native_counts.values()), f"the native path launched {native_counts}")
+    proto_counts, _ = phase_proto(torch, T, smi, ps_summary)
+    check(not any(proto_counts.values()), f"the protocols' path launched {proto_counts}")
     witness = phase_witness(torch, smi)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
-             cluster_counts, http_counts, mesh_counts, native_counts]
+             cluster_counts, http_counts, mesh_counts, native_counts, proto_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
-          f"http {http_counts}; mesh {mesh_counts}; native {native_counts}; witness "
+          f"http {http_counts}; mesh {mesh_counts}; native {native_counts}; proto "
+          f"{proto_counts}; witness "
           f"(child, its whole run) "
           f"{witness['launches']}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),

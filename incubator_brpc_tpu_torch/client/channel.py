@@ -509,7 +509,11 @@ class Channel:
         crossing that caps the sync fast path (client/ring.py has the
         full contract).  Returns results IN ORDER: response bytes per
         success, a ring.RingFailure(error_code, error_text) per failure
-        — the same ERPC codes the per-call path would set.
+        — the same ERPC codes the per-call path would set.  A reply that
+        carried an attachment (a ``PsService.Get``'s value) comes back as
+        a ring.RingReply: a ``bytes`` subclass holding the message, with
+        the attachment as an IOBuf on ``.attachment``; a reply without
+        one stays plain ``bytes``.
 
         ``controllers``, when given, is a parallel list; a non-None
         entry makes THAT call degrade to ``call_method`` with that

@@ -137,11 +137,33 @@ class RingFailure:
         return f"RingFailure({self.error_code}, {self.error_text!r})"
 
 
+class RingReply(bytes):
+    """A ring slot's reply that carried an attachment: the response
+    message bytes themselves (so it parses and compares as ``bytes``),
+    plus ``attachment``, the reply's attachment as an :class:`IOBuf`
+    taken off the controller before the pool wipes it.  A reply without
+    an attachment stays plain ``bytes``."""
+
+    def __new__(cls, message: bytes, attachment):
+        obj = super().__new__(cls, message)
+        obj.attachment = attachment
+        return obj
+
+    @property
+    def message(self) -> bytes:
+        return bytes(self)
+
+
 class SubmissionRing:
     """One caller's submission window + completion ring over a native
     channel's mux client.  NOT thread-safe: a ring belongs to one
     submitting thread (create one per pipeline; ``Channel.call_many``
     serializes on the channel's internal ring with a lock).
+
+    ``harvest()``/``drain()`` hand out ``(slot, result)`` pairs; a result
+    is the response bytes, a :class:`RingReply` (the bytes plus their
+    ``attachment``) when the reply carried an attachment, or a
+    :class:`RingFailure`.
     """
 
     def __init__(self, channel, depth: int = RING_DEPTH):
@@ -303,6 +325,9 @@ class SubmissionRing:
                 result = RingFailure(ctrl.error_code, ctrl.error_text())
             else:
                 result = resp.SerializeToString()
+                att = ctrl.__dict__.get("response_attachment")
+                if att:
+                    result = RingReply(result, att)
         finally:
             if pooled:
                 release_controller(ctrl)  # wiped on recycle
@@ -525,7 +550,9 @@ class SubmissionRing:
         """rc/ec → result, with EXACTLY the per-call path's semantics:
         the common shape short-circuits to bytes; everything else runs
         through _finish_native_response on a pooled controller so error
-        mapping, attachment split, and decompression stay one copy."""
+        mapping, attachment split, and decompression stay one copy.  An
+        attachment leaves with the message as a RingReply, taken before
+        release_controller wipes the controller."""
         if rc == 0 and not ec and not att_size and not ctype:
             return body
         ctrl = acquire_controller()
@@ -537,7 +564,9 @@ class SubmissionRing:
             if ctrl.error_code:
                 return RingFailure(ctrl.error_code, ctrl.error_text())
             rb = ctrl.__dict__.get("response_bytes")
-            return rb if rb is not None else b""
+            rb = rb if rb is not None else b""
+            att = ctrl.__dict__.get("response_attachment")
+            return RingReply(rb, att) if att else rb
         finally:
             release_controller(ctrl)
 
@@ -614,7 +643,8 @@ class SubmissionRing:
 def call_many(channel, method_spec, requests, timeout_ms=None,
               controllers=None):
     """Vectorized call: N same-method requests, results in order —
-    response bytes per success, :class:`RingFailure` per failure.  See
+    response bytes per success (a :class:`RingReply` when the reply
+    carried an attachment), :class:`RingFailure` per failure.  See
     ``Channel.call_many`` for the public contract."""
     n = len(requests)
     if controllers is not None and len(controllers) != n:

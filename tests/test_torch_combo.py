@@ -599,6 +599,20 @@ COPIED = {
     "observability/cluster.py": {4},
     "observability/trace.py": set(),
     "observability/trackme.py": set(),
+    "protocols/flv.py": set(),
+    "protocols/h2.py": set(),
+    "protocols/hpack.py": set(),
+    "protocols/legacy.py": set(),
+    "protocols/media_gateway.py": set(),
+    "protocols/mongo.py": set(),
+    "protocols/rtmp.py": set(),
+    "protocols/thrift.py": set(),
+    "protocols/ts.py": set(),
+    # :16 is the serialized descriptor, which keeps the proto package
+    # "incubator_brpc_tpu.test" of the JAX package's file: its bytes are
+    # length-prefixed, and the default pool takes an identical file twice
+    "protos/json_test_pb2.py": {16},
+    "protos/legacy_meta_pb2.py": set(),
     "protos/trackme_pb2.py": set(),
     "runtime/fd.py": set(),
     "serialization/__init__.py": set(),
@@ -625,6 +639,9 @@ COPIED = {
 # directory with a per-process temporary, a missing engine raises
 # NativeEngineError where the JAX package degrades, the extension loads
 # under a dotted name, and call_boundary() says which boundary runs.
+# client/ring.py: a reply's attachment leaves with its message as a
+# RingReply instead of being wiped with the pooled controller (and the
+# comments at JAX :5-6, :39, :284, :308 reworded).
 DIVERGED = {
     "analysis/invariants.py": [("replace", 16, 17, 16, 17), ("replace", 83, 84, 83, 87)],
     "analysis/witness.py": [("replace", 20, 22, 20, 22), ("replace", 44, 45, 44, 47)],
@@ -642,6 +659,10 @@ DIVERGED = {
                           ('delete', 340, 342, 391, 391), ('replace', 493, 496, 542, 543), ('replace', 521, 524, 568, 569), ('replace', 720, 723, 765, 766),
                           ('replace', 789, 792, 832, 833)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
+    "client/ring.py": [("replace", 4, 6, 4, 6), ("replace", 38, 39, 38, 39), ("insert", 139, 139, 139, 156),
+                       ("insert", 144, 144, 161, 166), ("replace", 283, 284, 305, 306), ("insert", 305, 305, 327, 330),
+                       ("replace", 307, 308, 332, 333), ("replace", 527, 528, 552, 555), ("replace", 539, 540, 566, 569),
+                       ("replace", 616, 617, 645, 647)],
 }
 
 

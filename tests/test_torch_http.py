@@ -28,6 +28,7 @@ import torch
 
 from incubator_brpc_tpu.protocols import http as j_http
 from incubator_brpc_tpu.protos import echo_pb2 as j_echo
+from incubator_brpc_tpu.protos import json_test_pb2 as j_json_test
 from incubator_brpc_tpu.protos import rpc_meta_pb2 as j_meta
 from incubator_brpc_tpu.protos import trackme_pb2 as j_trackme
 from incubator_brpc_tpu.serialization import json2pb as j_json2pb
@@ -38,6 +39,7 @@ from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
 from incubator_brpc_tpu_torch.protocols import ParseError
 from incubator_brpc_tpu_torch.protocols import http as p_http
 from incubator_brpc_tpu_torch.protos import echo_pb2 as p_echo
+from incubator_brpc_tpu_torch.protos import json_test_pb2 as p_json_test
 from incubator_brpc_tpu_torch.protos import rpc_meta_pb2 as p_meta
 from incubator_brpc_tpu_torch.protos import trackme_pb2 as p_trackme
 from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
@@ -165,6 +167,50 @@ def test_json2pb_gives_the_jax_packages_json_and_messages(i, pretty):
 def test_json2pb_refuses_what_the_jax_package_refuses(doc):
     pj, jj = p_echo.EchoRequest(), j_echo.EchoRequest()
     assert p_json2pb.json_to_proto(doc, pj) == j_json2pb.json_to_proto(doc, jj)
+
+
+def _json_probes(pb):
+    """The json2pb test proto (``protos/json_test_pb2``): every scalar
+    kind, an enum, a sub-message, repeated and map fields, an optional,
+    and the single-repeated-field ``OnlyList``."""
+    m = pb.JsonProbe(i32=-5, i64=1 << 40, d=2.5, flag=True, text="héllo",
+                     blob=b"\x00\x01\xfe", color=pb.Color.BLUE, nums=[1, 2, 3])
+    m.sub.name, m.sub.value = "n", 7
+    m.subs.add(name="a", value=1)
+    m.counts["x"] = 9
+    m.items[3].name = "three"
+    return [m, pb.JsonProbe(), pb.JsonProbe(opt_i32=0, color=pb.Color.GREEN, d=float("inf")),
+            pb.OnlyList(names=["a"]), pb.OnlyList(names=["a", "b"]), pb.OnlyList()]
+
+
+# (Pb2JsonOptions, Json2PbOptions) fields, each pair one reader's settings
+JSON_OPTIONS = [
+    ({}, {}),
+    ({"pretty_json": True, "enum_option": p_json2pb.OUTPUT_ENUM_BY_NUMBER}, {}),
+    ({"bytes_to_base64": False, "always_print_primitive_fields": True}, {"base64_to_bytes": False}),
+    ({"single_repeated_to_array": True, "jsonify_empty_array": True}, {"array_to_single_repeated": True}),
+    ({"enable_protobuf_map": False}, {"allow_unknown_fields": False}),
+]
+
+
+@pytest.mark.parametrize("opts", range(len(JSON_OPTIONS)))
+@pytest.mark.parametrize("i", range(6))
+def test_json2pb_options_give_the_jax_packages_json_on_the_test_proto(i, opts):
+    """JsonProbe, Color and OnlyList through both packages' json2pb under
+    each option set: the same JSON text, the same parse verdict, error
+    and offset, and the same message back."""
+    pb_opts, json_opts = JSON_OPTIONS[opts]
+    pm, jm = _json_probes(p_json_test)[i], _json_probes(j_json_test)[i]
+    p_out = p_json2pb.proto_to_json_with_options(pm, p_json2pb.Pb2JsonOptions(**pb_opts))
+    j_out = j_json2pb.proto_to_json_with_options(jm, j_json2pb.Pb2JsonOptions(**pb_opts))
+    assert p_out == j_out
+    text = p_out[0]
+    assert text is not None, p_out
+    back_p, back_j = type(pm)(), type(jm)()
+    p_res = p_json2pb.json_to_proto_with_options(text, back_p, p_json2pb.Json2PbOptions(**json_opts))
+    j_res = j_json2pb.json_to_proto_with_options(text, back_j, j_json2pb.Json2PbOptions(**json_opts))
+    assert p_res == j_res
+    assert back_p.SerializeToString() == back_j.SerializeToString()
 
 
 # ---------------------------------------------------------------------------

@@ -1566,21 +1566,6 @@ def test_forward_through_the_engine_batches_and_equals_the_jax_package(monkeypat
         jsrv.stop()
 
 
-def _record_window_values(channel, into):
-    """Wrap ``channel._finish_native_response``, which the ring runs for
-    every completion that carries an attachment, to keep each reply's
-    (message bytes, attachment bytes): call_many hands back the message
-    and drops the attachment, where a Get's value rides."""
-    finish = channel._finish_native_response
-
-    def recording(ctrl, *args):
-        finish(ctrl, *args)
-        into.append((ctrl.__dict__.get("response_bytes"),
-                     ctrl.response_attachment.to_bytes()))
-
-    channel._finish_native_response = recording
-
-
 def test_sharded_ps_keyed_get_window_crosses_once_per_shard():
     """sharded_ps_channel over native sub-channels: a call_many window
     of 32 keyed Gets crosses into C once per shard with no per-call
@@ -1606,9 +1591,6 @@ def test_sharded_ps_keyed_get_window_crosses_once_per_shard():
             c.request_attachment.append(vals[k])
             stub.Put(c, EchoRequest(message=k))
             assert not c.failed(), c.error_text()
-        replies = []
-        for sub in sh.partitions():
-            _record_window_values(sub, replies)
         before = fanout_log.counters()
         res = stub.call_many("Get", [EchoRequest(message=k) for k in keys])
         after = fanout_log.counters()
@@ -1617,8 +1599,7 @@ def test_sharded_ps_keyed_get_window_crosses_once_per_shard():
         assert after["fallback_calls"] == before["fallback_calls"]
         assert after["keys"] - before["keys"] == len(keys)
         assert [_msg_of(r) for r in res] == keys
-        got = {_msg_of(m): att for m, att in replies}
-        assert len(replies) == len(keys) and got == vals
+        assert [r.attachment.to_bytes() for r in res] == [vals[k] for k in keys]
     finally:
         for srv in servers:
             srv.stop()

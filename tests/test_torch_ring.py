@@ -34,6 +34,7 @@ from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
 from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
 from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest, EchoResponse
 from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+from incubator_brpc_tpu_torch.utils.iobuf import IOBuf
 
 CPU = torch.device("cpu")
 
@@ -949,3 +950,64 @@ def test_server_ring_bench_structure_guard(native_echo):
         assert burst_d >= win_d, (before, after)
     finally:
         ch.close()
+
+
+# ---------------------------------------------------------------------------
+# replies with an attachment (the port keeps it; the JAX package drops it)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("connection_type", ["native", "pooled"])
+def test_get_window_returns_each_stored_value(connection_type):
+    """A call_many window of PsService.Gets resolves each slot to a
+    RingReply: the message a per-call Get returns, with the stored value
+    as its attachment (the ring takes it off the pooled controller before
+    the pool wipes it).  Missing keys still fail their slot alone."""
+    import numpy as np
+
+    srv = Server(ServerOptions(native_engine=connection_type == "native",
+                               enable_batching=True))
+    srv.add_service(PsService(device=CPU))
+    assert srv.start(0) == 0
+    ch = Channel(ChannelOptions(timeout_ms=10000, connection_type=connection_type,
+                                connection_group=f"ring{next(_group_seq)}"))
+    try:
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        stub = ps_stub(ch)
+        rng = np.random.RandomState(11)
+        keys = [f"v{i}" for i in range(12)]
+        vals = {k: rng.randn(3, 8 + i).astype(np.float32).tobytes()
+                for i, k in enumerate(keys)}
+        for k in keys:
+            c = Controller()
+            c.request_attachment.append(vals[k])
+            stub.Put(c, EchoRequest(message=k))
+            assert not c.failed(), c.error_text()
+        per_call = {}
+        for k in keys:
+            c = Controller()
+            r = stub.Get(c, EchoRequest(message=k))
+            assert not c.failed(), c.error_text()
+            per_call[k] = (r.SerializeToString(), c.response_attachment.to_bytes())
+        res = stub.call_many("Get", [EchoRequest(message=k) for k in keys + ["absent"]])
+        got = [(bytes(r), getattr(r, "attachment", IOBuf()).to_bytes()) for r in res[:-1]]
+        assert got == [per_call[k] for k in keys]
+        assert [att for _, att in got] == [vals[k] for k in keys]
+        for k, r in zip(keys, res):
+            assert type(r).__name__ == "RingReply" and r.message == r
+            assert _msg(r) == k
+        assert isinstance(res[-1], RingFailure) and res[-1].error_code == errors.EREQUEST
+        assert controller_pool_clean()
+    finally:
+        ch.close()
+        srv.stop()
+
+
+@pytest.mark.parametrize("fixture", ["native_echo", "pooled_echo"])
+def test_attachment_free_window_stays_plain_bytes(fixture, request):
+    """Replies without an attachment keep the fast path's shape: plain
+    ``bytes``, not a RingReply."""
+    _, _, stub = request.getfixturevalue(fixture)
+    res = stub.call_many("Echo", [_packed(i, "pb") for i in range(16)])
+    assert [type(r) for r in res] == [bytes] * 16
+    assert [_msg(r) for r in res] == [f"pb{i}" for i in range(16)]
