@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times ROOT
+    python3 chip_smoke.py --tune
 
 Needs one CUDA card, ``nvcc`` and the repository checkout around this
 file.  Phases, each fatal on failure:
 
 1. build   — compile ops/csrc/*.cu for sm_90a (one nvcc per source, in
-             parallel) and print the card's name and power limit;
+             parallel), print the card's name and power limit and, from
+             cuobjdump -sass of the built library where the toolkit has
+             it, the bulk-copy instructions in K2's code (UTMALDG and
+             UTMASTG) and copy_blocks' (UBLKCP), failing without them;
 2. kernels — hold each hand-written kernel against its plain PyTorch
              version on the card: copied bytes equal, and the lane
              accumulator (or checksum) of K1 whole frame, K1 chained
@@ -212,8 +216,10 @@ file.  Phases, each fatal on failure:
              difference is inside the disarmed turns' spread) and the
              phase's wall time with the card's name and power limit;
 15. times  — each kernel's time at the main path's shapes beside its
-             bound, its plain version and x.clone(): the whole-frame
-             transmits and copy_blocks walked over distinct buffers (each
+             bound, its plain version and its library call: the whole-frame
+             transmits (K1 and K2 on the 64 MB frame, K2 on the 32 MiB u8
+             stack, with the median and spread of their windows), and
+             copy_blocks beside out.copy_(src), walked over distinct buffers (each
              frame cold in the 50 MB L2, as on the path) and run back to
              back behind a sleep kernel, so each pays for the write-back
              of its predecessor's output (the profiler's kernel span
@@ -229,22 +235,33 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 15 (transmit_ms) for the package of the checkout at ROOT,
+times of phase 15 (transmit_ms: K2 on the stack and copy_blocks beside
+out.copy_ included) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
 two roots in turns (A, B, B, A).
+
+``--tune`` builds transfer.cu once for each of TUNE_VARIANTS (the bulk-
+copy rings' stages, stage bytes, CTAs an SM, store lags and L2 policies;
+one nvcc each, in parallel), holds each variant's K2 and copy_blocks
+bit-equal to plain, and prints K2's times on the 64 MB frame and the u8
+stack and copy_blocks' on the frame per variant, in alternating turns,
+beside K1 and out.copy_(src): how the constants in transfer.cu were
+chosen.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import faulthandler
 import gc
 import itertools
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -471,7 +488,7 @@ def card(torch):
     return torch.device("cuda", 0)
 
 
-def phase_build():
+def phase_build(need_bulk: bool = True):
     from incubator_brpc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -482,12 +499,41 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    sass_bulk_ops(_build, need_bulk)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[build] card: {smi}")
     return smi
+
+
+# the bulk-copy engine's instructions each kernel's SASS must hold: the
+# tensor map's load and store (K2) and the 1D bulk copy (copy_blocks)
+BULK_SASS = {"copy_csum_staged_kernel": ("UTMALDG", "UTMASTG"),
+             "copy_blocks_kernel": ("UBLKCP",)}
+
+
+def sass_bulk_ops(_build, need: bool = True) -> None:
+    """From cuobjdump -sass of transfer.cu's library: which bulk-copy
+    instructions each function of K2 and copy_blocks holds.  Fails when
+    one lacks them (unless ``need`` is false: ``--times`` of an older
+    tree); says so where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        print("[build] SASS: no cuobjdump in this toolkit, bulk-copy instructions not read")
+        return
+    out = subprocess.run([tool, "-sass", str(_build._target("transfer"))], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    for kernel, want in BULK_SASS.items():
+        bodies = [f for f in out.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+        check(bodies, f"no {kernel} in the SASS of the built library")
+        seen = {op: sum(len(re.findall(rf"\b{op}\b", b)) for b in bodies) for op in want}
+        print(f"[build] SASS: {kernel} ({len(bodies)} instantiations): "
+              + ", ".join(f"{op} x{n}" for op, n in seen.items()))
+        check(not need or all(bool(re.search(rf"\b{op}\b", b)) for b in bodies for op in want),
+              f"an instantiation of {kernel} lacks one of {want}: the kernel does not use "
+              f"the bulk-copy engine")
 
 
 def phase_kernels(torch, T):
@@ -537,7 +583,8 @@ def phase_kernels(torch, T):
             x, torch.zeros((1, n), dtype=torch.float32, device=x.device), slot, br
         )
         out_f, csum_f = T._chunked_copy_csum(x, chunks, br)
-        sr = T.pallas_stage_rows(x, br)
+        plan = T.staged_plan(x, br)
+        sr = plan.stage_rows
         out_k2, acc_k2 = T._staged_copy_csum(x, br, sr)
         slot2 = torch.empty_like(x)
         out_k2i, csum_k2i = T.device_copy_with_checksum_dma_into(x, slot2, br, sr)
@@ -585,7 +632,7 @@ def phase_kernels(torch, T):
                 errs[key] = (acc - acc_p).abs().max().item()
             main_csum = csum_p
         print(f"[kernels] {str(dtype):15} {str(shape):13} br={br:3} chunks={len(chunks)} "
-              f"stage_rows={sr} ok: every mode bit-equal to plain")
+              f"K2 {plan.ntiles} tiles x {sr} rows ok: every mode bit-equal to plain")
     print("[kernels] tolerance: accumulators and checksums of K1 (whole frame, chained, "
           "slot, carry), fused, K2 and K2 slot bit-equal to the plain version, which "
           "adds in the kernels' order; copies (K1, K2, copy_blocks) byte-equal")
@@ -2302,7 +2349,7 @@ def phase_cluster(torch, T, child):
         stack = torch.stack(pvals)
         m, n = stack.shape
         br = T._fit_block_rows(m)
-        sr = T.pallas_stage_rows(stack, br)
+        sr = T.staged_plan(stack, br).stage_rows
         out_k2, acc_k2 = T._staged_copy_csum(stack, br, sr)
         _, acc_p = T.copy_csum_plain(stack, None, br)
         torch.cuda.synchronize(dev)
@@ -5388,16 +5435,17 @@ def chunk_walk(T, x, out, carry, br):
     return carry
 
 
-def queued_ms(torch, fn, iters: int = 20, windows: int = 3) -> float:
-    """Device ms per call of fn() with the calls run back to back: they
-    are queued behind a sleep kernel, so the card runs them with no host
-    gap between and each pays for the write-back of the output its
-    predecessor left dirty in the L2.  (Between launches spaced by the
-    host, that write-back drains in the idle gap after the kernel's span
-    ends, so a span alone can read under the HBM bound.)  The events
-    bracket the calls alone; the median of ``windows``.  A window whose
-    calls took the host longer to enqueue than the card slept is taken
-    again with twice the sleep; after SLEEP_TRIES such windows it fails."""
+def queued_windows(torch, fn, iters: int = 20, windows: int = 3) -> list:
+    """Device ms per call of fn() in each of ``windows`` windows, the
+    calls run back to back: they are queued behind a sleep kernel, so
+    the card runs them with no host gap between and each pays for the
+    write-back of the output its predecessor left dirty in the L2.
+    (Between launches spaced by the host, that write-back drains in the
+    idle gap after the kernel's span ends, so a span alone can read
+    under the HBM bound.)  The events bracket the calls alone.  A window
+    whose calls took the host longer to enqueue than the card slept is
+    taken again with twice the sleep; after SLEEP_TRIES such windows it
+    fails."""
     fn()
     seen, cycles, tries = [], SLEEP_CYCLES, 0
     while len(seen) < windows:
@@ -5420,7 +5468,12 @@ def queued_ms(torch, fn, iters: int = 20, windows: int = 3) -> float:
         check(tries < SLEEP_TRIES, f"enqueueing {iters} calls took {host_ms:.2f} ms, longer "
                                    f"than the card's {slept:.2f} ms sleep, {tries} times")
         cycles *= 2
-    return statistics.median(seen)
+    return seen
+
+
+def queued_ms(torch, fn, iters: int = 20, windows: int = 3) -> float:
+    """The median of queued_windows."""
+    return statistics.median(queued_windows(torch, fn, iters, windows))
 
 
 def cold_pairs(torch, x):
@@ -5437,6 +5490,15 @@ def walk(fn, pairs):
     return lambda: fn(*next(it))
 
 
+def stage_rows_of(T, v, br):
+    """K2's stage rows for lane view v: the planner's, or, in a checkout
+    from before the planner (``--times`` of an older tree), its
+    pallas_stage_rows."""
+    if hasattr(T, "staged_plan"):
+        return T.staged_plan(v, br).stage_rows
+    return T.pallas_stage_rows(v, br)
+
+
 def transmit_ms(torch, T, x, w):
     """Device ms per call of each copy+checksum transmit, every kernel
     the call launches included (so a tree whose fold is a launch of its
@@ -5446,49 +5508,69 @@ def transmit_ms(torch, T, x, w):
     ring hits run it, walked over the frame's chunks (the profiler's
     kernel spans); ``frame``, K1 on ``x``, and ``w``, K1 on the PS
     path's W ``w``, each walked over distinct buffers (``cold_pairs``)
-    and run back to back (``queued_ms``); ``staged``, K2 on ``x``
-    likewise.  ``frame_span`` and ``w_span`` are K1's kernel spans in
-    the profiler between launches spaced by the host, on one buffer."""
+    and run back to back (``queued_ms``); ``staged``, K2 on ``x``, and
+    ``staged_stack``, K2 on the (DMGET_KEYS, CACHE_VALUE) u8 stack of a
+    stacked DMSET, likewise, each with its windows (``*_windows``);
+    ``copy_blocks`` and ``copy_``, the plain copy and out.copy_(src) on
+    ``x``, likewise.  ``frame_span`` and ``w_span`` are K1's kernel
+    spans in the profiler between launches spaced by the host, on one
+    buffer."""
     out, w_out = torch.empty_like(x), torch.empty_like(w)
     br, w_br = T._fit_block_rows(x.shape[0]), T._fit_block_rows(w.shape[0])
-    sr = T.pallas_stage_rows(x, br)
+    sr = stage_rows_of(T, x, br)
+    stack = make_payload(torch, (DMGET_KEYS, CACHE_VALUE), torch.uint8, SEED)
+    s_br = T._fit_block_rows(DMGET_KEYS)
+    s_sr = stage_rows_of(T, stack, s_br)
     carry = torch.randn((1, x.shape[1]), generator=torch.Generator(device=x.device).manual_seed(7),
                         device=x.device)
-    xs, ws = cold_pairs(torch, x), cold_pairs(torch, w)
+    xs, ws, ss = cold_pairs(torch, x), cold_pairs(torch, w), cold_pairs(torch, stack)
+    staged = queued_windows(torch, walk(lambda s, o: T._staged_copy_csum(s, br, sr, out=o), xs),
+                            windows=5)
+    staged_stack = queued_windows(
+        torch, walk(lambda s, o: T._staged_copy_csum(s, s_br, s_sr, out=o), ss), windows=5)
     return {
         "chunk": device_ms(torch, lambda: chunk_walk(T, x, out, carry, br))
         / (x.shape[0] // CHUNK_ROWS),
         "frame": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, br, out=o), xs)),
         "w": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, w_br, out=o), ws)),
-        "staged": queued_ms(torch, walk(lambda s, o: T._staged_copy_csum(s, br, sr, out=o), xs)),
+        "staged": statistics.median(staged),
+        "staged_windows": staged,
+        "staged_stack": statistics.median(staged_stack),
+        "staged_stack_windows": staged_stack,
+        "copy_blocks": queued_ms(torch, walk(T._launch_copy_blocks, xs)),
+        "copy_": queued_ms(torch, walk(lambda s, o: o.copy_(s), xs)),
         "frame_span": device_ms(torch, lambda: T._copy_csum(x, None, br, out=out)),
         "w_span": device_ms(torch, lambda: T._copy_csum(w, None, w_br, out=w_out)),
     }
 
 
+def copy_bound_ms(nbytes: int, elements: int, n: int) -> float:
+    """A copy+checksum's bound: it reads the payload and writes its copy
+    and the (1, n) f32 accumulator, one addition an element (the
+    kernels' partial scratch is not counted)."""
+    return max((2 * nbytes + 4 * n) / HBM_BYTES_PER_S, elements / F32_OPS_PER_S) * 1e3
+
+
 def phase_times(torch, T, errs, totals):
-    """Each kernel alone at the main path's shapes: its device time
-    from the profiler; plain versions and x.clone() by CUDA events."""
+    """Each kernel alone at the main path's shapes (transmit_ms); the
+    plain versions and x.clone() by CUDA events."""
     x = make_payload(torch, MAIN_SHAPE, torch.float32, SEED)
     w = make_payload(torch, (PS_DIM, PS_DIM), torch.float32, SEED)
     m, n = MAIN_SHAPE
     br = T._fit_block_rows(m)
     out = torch.empty_like(x)
     ms = transmit_ms(torch, T, x, w)
-    xs = cold_pairs(torch, x)
 
     clone_ms = cuda_ms(torch, lambda: x.clone())
     plain_ms = cuda_ms(torch, lambda: T.copy_csum_plain(x, None, br), iters=5)
-    # the function reads x and writes its copy and the (1, n) f32
-    # accumulator; the kernels' own partial scratch is not counted
     copy_bytes = 2 * x.nbytes + 4 * n
     rows = []
     for name, k_ms, plain, nbytes, ops in [
         ("copy_csum_blocks", ms["frame"], plain_ms, copy_bytes, m * n),
         ("copy_csum_staged", ms["staged"], plain_ms, copy_bytes, m * n),
         # a pure copy does no arithmetic: bound by its 2 x 64 MiB alone
-        ("copy_blocks", queued_ms(torch, walk(T._launch_copy_blocks, xs)),
-         cuda_ms(torch, lambda: T.device_copy_plain(x)), 2 * x.nbytes, 0),
+        ("copy_blocks", ms["copy_blocks"], cuda_ms(torch, lambda: T.device_copy_plain(x)),
+         2 * x.nbytes, 0),
     ]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
@@ -5498,9 +5580,11 @@ def phase_times(torch, T, errs, totals):
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": plain,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            # x.clone() computes device_copy's function in one call; no
-            # torch call computes a copy plus its block checksums
-            "library_ms": clone_ms if name == "copy_blocks" else None,
+            # out.copy_(src) computes device_copy's function in one call,
+            # timed as the kernel is (queued, cold pairs); x.clone(), by
+            # CUDA events on one buffer, is kept beside it.  No torch call
+            # computes a copy plus its block checksums
+            "library_ms": ms["copy_"] if name == "copy_blocks" else None,
             "clone_ms": clone_ms,
         }
         if name in OFF_PATH:
@@ -5509,10 +5593,25 @@ def phase_times(torch, T, errs, totals):
                                        "copy_blocks_kernel")
         rows.append(row)
         print(f"[times] {name:17} {k_ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms, "
-              f"plain {plain:.4f} ms, x.clone() {clone_ms:.4f} ms)")
+              f"{max(t_bytes, t_ops) / k_ms:.0%} of it; plain {plain:.4f} ms, "
+              f"x.clone() {clone_ms:.4f} ms)")
+    print(f"[times] copy_blocks {ms['copy_blocks']:.4f} ms against out.copy_(src) "
+          f"{ms['copy_']:.4f} ms, both back to back over {COLD_PAIRS} cold pairs "
+          f"({ms['copy_blocks'] / ms['copy_']:.3f}x); x.clone() on one buffer by CUDA events "
+          f"{clone_ms:.4f} ms")
+    # K2 at both of its path shapes, back to back: the 64 MB frame and the
+    # stacked DMSET's (32, 1048576) u8 stack, each with its windows' spread
+    s_bound = copy_bound_ms(DMGET_KEYS * CACHE_VALUE, DMGET_KEYS * CACHE_VALUE, CACHE_VALUE)
+    rows[1].update(ms_windows=ms["staged_windows"], stack_ms=ms["staged_stack"],
+                   stack_ms_windows=ms["staged_stack_windows"], stack_bound_ms=s_bound)
+    for what, key, bound in [("64 MB frame", "staged", rows[1]["bound_ms"]),
+                             (f"({DMGET_KEYS}, {CACHE_VALUE}) u8 stack", "staged_stack", s_bound)]:
+        win = ms[f"{key}_windows"]
+        print(f"[times] copy_csum_staged on the {what}: {ms[key]:.4f} ms median of "
+              f"{len(win)} windows ({min(win):.4f}-{max(win):.4f}), bound {bound:.4f} ms, "
+              f"{bound / ms[key]:.0%} of it; K1 on the frame {ms['frame']:.4f} ms")
     # K1 at the width the PS path gives it: W, (6144, 6144) f32
-    w_bound = max((2 * w.nbytes + 4 * PS_DIM) / HBM_BYTES_PER_S,
-                  w.numel() / F32_OPS_PER_S) * 1e3
+    w_bound = copy_bound_ms(w.nbytes, w.numel(), PS_DIM)
     rows[0].update(ps_w_ms=ms["w"], ps_w_bound_ms=w_bound, span_ms=ms["frame_span"],
                    ps_w_span_ms=ms["w_span"])
     print(f"[times] kernel spans in the profiler, launches spaced by the host on one buffer "
@@ -5557,13 +5656,156 @@ def times_main(root: str) -> int:
 
     check(pathlib.Path(T.__file__).resolve().is_relative_to(path),
           f"imported {T.__file__}, not the package under {path}")
-    smi = phase_build()
+    smi = phase_build(need_bulk=False)
     x = make_payload(torch, MAIN_SHAPE, torch.float32, SEED)
     w = make_payload(torch, (PS_DIM, PS_DIM), torch.float32, SEED)
     ms = transmit_ms(torch, T, x, w)
     for k, v in ms.items():
-        print(f"[times] {path.name}: {k:6} {v:.5f} ms")
+        if not k.endswith("_windows"):
+            print(f"[times] {path.name}: {k:12} {v:.5f} ms")
     print(json.dumps({"root": str(path), "card": smi, "ms": ms}))
+    return 0
+
+
+# --tune: the bulk-copy rings' constants tried on the card.  A variant is
+# transfer.cu with the named constants replaced (ops/transfer.py's
+# mirrors of STAGE_BYTES and of both CTAs-an-SM set to match, for the
+# stage rows and the grids).  The first row is the constants the tree
+# holds.
+TUNE_VARIANTS = [
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 4, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 4, "COPY_CHUNK": 32768, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 3, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 6, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 2, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 2, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 2, "STORE_LAG": 1,
+     "COPY_STAGES": 24, "COPY_CHUNK": 8192, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 4,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 4, "STAGE_BYTES": 16384, "STAGED_CTAS_PER_SM": 2, "STORE_LAG": 2,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 1,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 2,
+     "COPY_STAGES": 14, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 3,
+     "LOAD_EVICT": 1, "STORE_EVICT": 1},
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 1, "STORE_EVICT": 0},
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 0, "STORE_EVICT": 1},
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 1, "STORE_EVICT": 2},
+    {"STAGES": 6, "STAGE_BYTES": 32768, "STAGED_CTAS_PER_SM": 1, "STORE_LAG": 1,
+     "COPY_STAGES": 12, "COPY_CHUNK": 16384, "COPY_CTAS_PER_SM": 1, "COPY_STORE_LAG": 2,
+     "LOAD_EVICT": 2, "STORE_EVICT": 1},
+]
+TUNE_ROUNDS = 4
+
+
+def build_variants(_build, variants):
+    """One library per variant of transfer.cu, built in parallel (one
+    nvcc each) under ops/_build/tune/."""
+    src = (_build.CSRC / "transfer.cu").read_text()
+    out_dir = _build.BUILD_DIR / "tune"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, variant in enumerate(variants):
+        text = src
+        for name, val in variant.items():
+            text, hits = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {val};",
+                                 text)
+            check(hits == 1, f"transfer.cu holds no single constexpr int {name}")
+        cu, so = out_dir / f"transfer_v{i}.cu", out_dir / f"libtransfer_v{i}.so"
+        cu.write_text(text)
+        procs.append((so, subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                                            str(cu)], stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for i, (so, proc) in enumerate(procs):
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"variant {i} did not build:\n{log}")
+        libs.append(ctypes.CDLL(str(so)))
+    return libs
+
+
+def tune_main() -> int:
+    """``--tune``: K2 on the 64 MB frame and the u8 stack and copy_blocks
+    on the frame, under each of TUNE_VARIANTS, in TUNE_ROUNDS turns that
+    alternate the variants' order, beside K1 and out.copy_(src); every
+    variant's K2 and copy_blocks held bit-equal first."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    from incubator_brpc_tpu_torch.ops import _build
+    from incubator_brpc_tpu_torch.ops import transfer as T
+
+    smi = phase_build()
+    libs = [T.bind(lib) for lib in build_variants(_build, TUNE_VARIANTS)]
+    x = make_payload(torch, MAIN_SHAPE, torch.float32, SEED)
+    stack = make_payload(torch, (DMGET_KEYS, CACHE_VALUE), torch.uint8, SEED)
+    br, s_br = T._fit_block_rows(x.shape[0]), T._fit_block_rows(DMGET_KEYS)
+    xs, ss = cold_pairs(torch, x), cold_pairs(torch, stack)
+    keys = ("staged", "staged_stack", "copy_blocks")
+    got = [{k: [] for k in keys} for _ in TUNE_VARIANTS]
+    ref = {"frame": [], "copy_": []}
+    saved = (T._lib, T._STAGE_BYTES, T._STAGED_CTAS_PER_SM, T._COPY_CTAS_PER_SM)
+    try:
+        for rnd in range(TUNE_ROUNDS):
+            order = list(range(len(libs)))
+            for i in (order if rnd % 2 == 0 else order[::-1]):
+                v = TUNE_VARIANTS[i]
+                T._lib, T._STAGE_BYTES = libs[i], v["STAGE_BYTES"]
+                T._STAGED_CTAS_PER_SM, T._COPY_CTAS_PER_SM = (v["STAGED_CTAS_PER_SM"],
+                                                              v["COPY_CTAS_PER_SM"])
+                sr, s_sr = T.staged_plan(x, br).stage_rows, T.staged_plan(stack, s_br).stage_rows
+                if rnd == 0:
+                    for v, b, r in ((x, br, sr), (stack, s_br, s_sr)):
+                        o, a = T._staged_copy_csum(v, b, r)
+                        c = T.device_copy(v)
+                        torch.cuda.synchronize()
+                        check(torch.equal(o, v) and torch.equal(c, v)
+                              and torch.equal(a, T.copy_csum_plain(v, None, b)[1]),
+                              f"variant {TUNE_VARIANTS[i]} is not bit-equal to plain on "
+                              f"{tuple(v.shape)} {v.dtype}")
+                got[i]["staged"] += queued_windows(
+                    torch, walk(lambda s, o: T._staged_copy_csum(s, br, sr, out=o), xs))
+                got[i]["staged_stack"] += queued_windows(
+                    torch, walk(lambda s, o: T._staged_copy_csum(s, s_br, s_sr, out=o), ss))
+                got[i]["copy_blocks"] += queued_windows(torch, walk(T._launch_copy_blocks, xs))
+            T._lib, T._STAGE_BYTES, T._STAGED_CTAS_PER_SM, T._COPY_CTAS_PER_SM = saved
+            ref["frame"] += queued_windows(
+                torch, walk(lambda s, o: T._copy_csum(s, None, br, out=o), xs))
+            ref["copy_"] += queued_windows(torch, walk(lambda s, o: o.copy_(s), xs))
+    finally:
+        T._lib, T._STAGE_BYTES, T._STAGED_CTAS_PER_SM, T._COPY_CTAS_PER_SM = saved
+    bounds = {"staged": copy_bound_ms(x.nbytes, x.numel(), x.shape[1]),
+              "staged_stack": copy_bound_ms(stack.nbytes, stack.numel(), stack.shape[1]),
+              "copy_blocks": 2 * x.nbytes / HBM_BYTES_PER_S * 1e3}
+
+    def spread(win):
+        return f"{statistics.median(win):.4f} ({min(win):.4f}-{max(win):.4f})"
+
+    print(f"[tune] {smi}; ms a call, median (min-max) of {TUNE_ROUNDS} x 3 windows, back to "
+          f"back over {COLD_PAIRS} cold pairs; K1 on the frame {spread(ref['frame'])}, "
+          f"out.copy_(src) {spread(ref['copy_'])}; bounds "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bounds.items()))
+    for variant, row in zip(TUNE_VARIANTS, got):
+        print(f"[tune] K2 {variant['STAGES']} x {variant['STAGE_BYTES']} B, "
+              f"{variant['STAGED_CTAS_PER_SM']} CTA/SM; copy_blocks {variant['COPY_STAGES']} x "
+              f"{variant['COPY_CHUNK']} B, {variant['COPY_CTAS_PER_SM']} CTA/SM; store lags "
+              f"{variant['STORE_LAG']}, {variant['COPY_STORE_LAG']}; L2 evict (0 normal, 1 first, "
+              f"2 last) loads {variant['LOAD_EVICT']}, stores {variant['STORE_EVICT']}: "
+              + "; ".join(f"{k} {spread(row[k])} {bounds[k] / statistics.median(row[k]):.0%}"
+                          for k in keys))
+    print(json.dumps({"card": smi, "variants": TUNE_VARIANTS, "ms": got, "ref": ref,
+                      "bounds": bounds}))
     return 0
 
 
@@ -5571,10 +5813,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", metavar="ROOT",
                     help="only the transmit times, for the package of the checkout at ROOT")
+    ap.add_argument("--tune", action="store_true",
+                    help="only K2's and copy_blocks' times under each of TUNE_VARIANTS")
     ap.add_argument("--witness-child", metavar="DEVICE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.times is not None:
         return times_main(args.times)
+    if args.tune:
+        return tune_main()
     if args.witness_child is not None:  # [witness]'s child: arms before torch loads
         return witness_child(args.witness_child)
     import torch

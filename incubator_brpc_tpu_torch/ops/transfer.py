@@ -11,14 +11,17 @@ The kernels are written by hand for Hopper in ``ops/csrc/transfer.cu``
 - K1 ``copy_csum_blocks`` — the whole-frame, carried chunk and
   donated-slot kernels (the JAX package's three grid kernels);
 - K2 ``copy_csum_staged`` — the whole frame in one launch of persistent
-  CTAs staging tiles through shared memory (the JAX package's
-  double-buffered DMA kernel, ``chunk_mode="pallas"``);
-- ``copy_blocks`` — the plain blocked copy, :func:`device_copy` (the JAX
-  package's ``device_copy``; no path of either package calls it).
+  CTAs whose bulk-copy engine (TMA) rings 512-byte-wide tiles through
+  shared memory while eight warps sum them (the JAX package's
+  double-buffered DMA kernel, ``chunk_mode="pallas"``); its geometry is
+  planned here, by :func:`staged_plan`;
+- ``copy_blocks`` — the plain copy on the same engine, :func:`device_copy`
+  (the JAX package's ``device_copy``; no path of either package calls
+  it).
 
 K1 and K2 fold the per-block column sums onto the carry in their own
-tail (the last CTA to finish a column tile folds it), so each transmit
-is one launch.
+tail (the last CTA to finish a column tile folds it; in K2 the last warp
+to finish its slice of one), so each transmit is one launch.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (:func:`copy_csum_plain`), a CUDA tensor launches
@@ -37,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,10 +64,29 @@ _DTYPE_CODES = {
     torch.int64: 8,
 }
 
-# K2's shared-memory stage: at most this many bytes of one 128-column tile
-# (STAGE_BYTES in transfer.cu), a multiple of its 8 row groups
-_STAGE_BYTES = 32768
 _ROW_GROUPS = 8
+
+# K2's and copy_blocks' bulk-copy rings (transfer.cu's constants of the
+# same names): a column tile is _TILE_BYTES of a row whatever the dtype,
+# moved as 8-byte words; a stage is at most _STAGE_BYTES of one tile;
+# _STAGES stages, K2's two buffers of one item's group sums (_RED_BYTES)
+# and two 8-byte mbarriers a stage fill a K2 CTA's shared memory, and
+# _COPY_STAGES chunks of _COPY_CHUNK bytes and two mbarriers each a copy CTA's
+# (_STAGED_SMEM, _COPY_SMEM, each with _SMEM_ALIGN of slack); the grids
+# are so many persistent CTAs an SM.  The stages, their bytes and the CTAs
+# an SM were chosen by timing variants on an H100 (chip_smoke.py --tune)
+_TILE_BYTES = 512
+_STAGE_BYTES = 32768
+_STAGES = 6
+_RED_BYTES = 2 * _ROW_GROUPS * _TILE_BYTES * 4
+_SMEM_ALIGN = 1024
+_STAGED_SMEM = _SMEM_ALIGN + _STAGES * _STAGE_BYTES + _RED_BYTES + 2 * _STAGES * 8
+_COPY_STAGES = 12
+_COPY_CHUNK = 16384
+_COPY_SMEM = _SMEM_ALIGN + _COPY_STAGES * _COPY_CHUNK + 2 * _COPY_STAGES * 8
+_SMEM_PER_SM = 232448  # what one CTA may opt into on an H100
+_STAGED_CTAS_PER_SM = 1
+_COPY_CTAS_PER_SM = 1
 
 # K1's column tile (K1_TW in transfer.cu): one arrival counter per tile
 _K1_TILE = 64
@@ -173,6 +195,20 @@ _counters_lock = threading.Lock()
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from transfer.cu."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.copy_csum_blocks.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, p]
+    lib.copy_csum_blocks.restype = i32
+    lib.copy_csum_staged.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.copy_csum_staged.restype = i32
+    lib.copy_blocks.argtypes = [p, p, i64, i32, p]
+    lib.copy_blocks.restype = i32
+    lib.transfer_error_string.argtypes = [i32]
+    lib.transfer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernels() -> ctypes.CDLL:
     """transfer.cu's library, built on first use, with its signatures."""
     global _lib
@@ -181,21 +217,7 @@ def _kernels() -> ctypes.CDLL:
             if _lib is None:
                 from incubator_brpc_tpu_torch.ops import _build
 
-                lib = _build.load("transfer")
-                p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-                lib.copy_csum_blocks.argtypes = [
-                    p, p, p, p, p, p, i64, i64, i32, i32, p,
-                ]
-                lib.copy_csum_blocks.restype = i32
-                lib.copy_csum_staged.argtypes = [
-                    p, p, p, p, p, i64, i64, i32, i32, i32, i32, p,
-                ]
-                lib.copy_csum_staged.restype = i32
-                lib.copy_blocks.argtypes = [p, p, i64, i32, p]
-                lib.copy_blocks.restype = i32
-                lib.transfer_error_string.argtypes = [i32]
-                lib.transfer_error_string.restype = ctypes.c_char_p
-                _lib = lib
+                _lib = bind(_build.load("transfer"))
     return _lib
 
 
@@ -307,20 +329,22 @@ def _launch_copy_csum_staged(x, out, acc: torch.Tensor, block_rows: int,
     code = _check_payload(x, block_rows)
     _check_operand(out, "out", x)
     _check_lanes(acc, "acc", x)
+    plan = staged_plan(x, block_rows)
+    _check_stage_rows(block_rows, stage_rows)
     lib = _kernels()
     m, n = x.shape
-    items = (m // block_rows) * (n // _LANE)
-    grid = min(items, 2 * _sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         partial = torch.empty(
             (m // block_rows, n), dtype=torch.float32, device=x.device
         )
-        counters = _arrival_counters(x.device, stream, n // _LANE)
+        counters = _arrival_counters(
+            x.device, stream, plan.ntiles * _ROW_GROUPS
+        )
         rc = lib.copy_csum_staged(
             x.data_ptr(), out.data_ptr(), partial.data_ptr(), acc.data_ptr(),
-            counters.data_ptr(), m, n, block_rows, stage_rows, code, grid,
-            stream,
+            counters.data_ptr(), m, n, block_rows, stage_rows, code,
+            plan.grid(_sm_count(x.device)), stream,
         )
     _check_rc(lib, rc, "copy_csum_staged")
     launches["copy_csum_staged"] += 1
@@ -341,15 +365,15 @@ def _copy_csum(x, carry, block_rows: int, out=None):
 
 def _launch_copy_blocks(x: torch.Tensor, out: torch.Tensor) -> None:
     """copy_blocks on the current stream: out = x, byte for byte, by at
-    most 8 CTAs of 256 threads per SM (a full SM's worth of threads)."""
+    most _COPY_CTAS_PER_SM persistent CTAs an SM."""
     _check_operand(x, "payload", x)
     _check_operand(out, "out", x)
     lib = _kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.copy_blocks(
-            x.data_ptr(), out.data_ptr(), x.nbytes, 8 * _sm_count(x.device),
-            stream,
+            x.data_ptr(), out.data_ptr(), x.nbytes,
+            _COPY_CTAS_PER_SM * _sm_count(x.device), stream,
         )
     _check_rc(lib, rc, "copy_blocks")
     launches["copy_blocks"] += 1
@@ -470,18 +494,72 @@ def device_copy_with_checksum_chunked(x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def pallas_stage_rows(v: torch.Tensor, block_rows: int) -> int:
-    """Rows of one K2 shared-memory stage for lane view ``v``: as many
-    rows of a 128-column tile as fit the stage, a multiple of the 8 row
-    groups, and no more than a block needs."""
-    fit = _STAGE_BYTES // (_LANE * v.element_size())
-    need = -(-block_rows // _ROW_GROUPS) * _ROW_GROUPS
-    return min(fit, need)
+class StagedPlan(NamedTuple):
+    """K2's geometry for one lane view: ``tile_cols`` columns a tile
+    (``_TILE_BYTES`` of a row), ``ntiles`` tiles across a row (the last
+    one clipped when the row is not a whole number of tiles),
+    ``stage_rows`` rows a shared-memory stage and ``items`` (row block,
+    tile) work items."""
+
+    tile_cols: int
+    ntiles: int
+    stage_rows: int
+    items: int
+
+    def grid(self, sms: int) -> int:
+        """Persistent CTAs of one launch on a card of ``sms`` SMs."""
+        return min(self.items, _STAGED_CTAS_PER_SM * sms)
+
+
+def staged_plan(v: torch.Tensor, block_rows: int) -> StagedPlan:
+    """K2's tiles, stages and work items for lane view ``v`` with blocks
+    of ``block_rows`` rows: the ONE place they are decided (transfer.cu
+    checks what it is given).  A tile is ``_TILE_BYTES`` of a row, so
+    every dtype moves the same bytes a stage; a stage holds whole row
+    groups of one tile, as many as ``_STAGE_BYTES`` takes and no more than
+    the block needs, or the whole block when it has fewer than 8 rows.
+    Raises ValueError where the bulk-copy engine cannot describe ``v``:
+    a base that is not 16-byte aligned (a view at an odd offset)."""
+    m, n = v.shape
+    if v.data_ptr() % 16:
+        raise ValueError(
+            f"payload base {v.data_ptr():#x} is not 16-byte aligned: the "
+            f"bulk-copy engine cannot describe it"
+        )
+    tile_cols = _TILE_BYTES // v.element_size()
+    ntiles = -(-n // tile_cols)
+    if block_rows < _ROW_GROUPS:
+        stage_rows = block_rows
+    else:
+        stage_rows = min(_STAGE_BYTES // _TILE_BYTES,
+                         -(-block_rows // _ROW_GROUPS) * _ROW_GROUPS)
+    items = (m // block_rows) * ntiles
+    if items >= 2**31:
+        raise ValueError(f"payload shape {(m, n)} exceeds one launch's items")
+    return StagedPlan(tile_cols, ntiles, stage_rows, items)
+
+
+def _check_stage_rows(block_rows: int, stage_rows: int) -> None:
+    """``stage_rows`` must be whole row groups (or the whole block of
+    fewer than 8 rows) that fit one stage."""
+    whole = stage_rows % _ROW_GROUPS == 0 or (
+        stage_rows == block_rows < _ROW_GROUPS
+    )
+    if not (0 < stage_rows and whole
+            and stage_rows * _TILE_BYTES <= _STAGE_BYTES):
+        raise ValueError(
+            f"stage_rows={stage_rows} is not whole row groups of a "
+            f"{_STAGE_BYTES}-byte stage for block_rows={block_rows}"
+        )
 
 
 def _staged_copy_csum(x, block_rows: int, stage_rows: int, out=None):
-    """K2 on CUDA, the plain version on the CPU.  Returns (copy, acc)."""
+    """K2 on CUDA, the plain version on the CPU, each after the staging's
+    checks (so an unaligned view or a bad stage is refused on both).
+    Returns (copy, acc)."""
     if x.device.type == "cpu":
+        staged_plan(x, block_rows)
+        _check_stage_rows(block_rows, stage_rows)
         return copy_csum_plain(x, None, block_rows, out)
     if x.device.type != "cuda":
         raise ValueError(f"no copy+checksum kernel for device {x.device}")
@@ -522,7 +600,7 @@ def device_copy_with_checksum_pallas(x: torch.Tensor,
     )
     if v is None:
         raise ValueError(f"tensor of shape {tuple(x.shape)} does not lane-tile")
-    stage_rows = pallas_stage_rows(v, block_rows)
+    stage_rows = staged_plan(v, block_rows).stage_rows
     if slot is not None:
         out, csum = device_copy_with_checksum_dma_into(
             v, slot, block_rows, stage_rows

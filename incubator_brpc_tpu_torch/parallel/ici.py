@@ -412,9 +412,9 @@ class IciFabric:
         #                 while chunk k+1's launch stages; per-chunk
         #                 rpcz stamps show the overlap),
         #   "pallas"    — the whole frame as ONE staged kernel launch
-        #                 (persistent CTAs pull tile k+1 into shared
-        #                 memory while tile k is summed and stored;
-        #                 ops/transfer.device_copy_with_checksum_dma);
+        #                 (persistent CTAs keep bulk loads of the next
+        #                 stages in flight while a stage is summed and
+        #                 stored; ops/transfer.device_copy_with_checksum_dma);
         #                 multi-segment frames additionally coalesce
         #                 into one stacked per-destination transmit,
         #   "off"       — whole-frame transmit (pre-chunking behavior).
@@ -802,9 +802,10 @@ class IciFabric:
     def _transmit_pallas(self, arr, dst_port: IciPort, leg):
         """Whole-frame transmit as ONE staged kernel launch
         (ops/transfer.device_copy_with_checksum_dma): persistent CTAs
-        pull tile k+1 into shared memory while tile k is summed and
-        stored — no per-chunk launch gap.  Rides the same segmentation
-        plan as the other modes (chunk_plan_for — chaos traversal
+        keep the next stages' bulk loads in flight while a stage is
+        summed and stored back — no per-chunk launch gap.  Rides the
+        same segmentation plan as the other modes (chunk_plan_for —
+        chaos traversal
         indices agree), and writes into a frame-shaped StagingRing slot
         when the ring holds one, so callers that recycle response
         buffers (``dst_port.staging.release``) get allocation-free
@@ -815,7 +816,7 @@ class IciFabric:
             device_copy_with_checksum_dma,
             device_copy_with_checksum_dma_into,
             is_numeric,
-            pallas_stage_rows,
+            staged_plan,
             transmit_array,
         )
 
@@ -833,7 +834,7 @@ class IciFabric:
         if not is_numeric(arr.dtype):
             ici_pallas_fallbacks << 1
             return transmit_array(arr)
-        stage_rows = pallas_stage_rows(v, block_rows)
+        stage_rows = staged_plan(v, block_rows).stage_rows
         slot = dst_port.staging.acquire(v.shape, v.dtype)
         with kernel_section("ici.pallas"):
             if slot is not None:

@@ -57,7 +57,7 @@ def _all_modes_bit_equal(x, chunk_bytes):
     out_s, acc_s = TT.device_copy_with_checksum_chunk_into(x, zeros, slot, br)
     assert out_s.data_ptr() == slot.data_ptr()
     assert torch.equal(out_s, x) and torch.equal(acc_s, acc)
-    out_k2, acc_k2 = TT._staged_copy_csum(x, br, TT.pallas_stage_rows(x, br))
+    out_k2, acc_k2 = TT._staged_copy_csum(x, br, TT.staged_plan(x, br).stage_rows)
     assert torch.equal(out_k2, x) and torch.equal(acc_k2, acc)
     csum = TT.fold_checksum(acc)
     slot2 = torch.empty_like(x)
@@ -70,9 +70,24 @@ def _all_modes_bit_equal(x, chunk_bytes):
     return acc
 
 
-@pytest.mark.parametrize("m,n,chunk_bytes", SHAPES)
-def test_kernels_match_plain(cuda_device, m, n, chunk_bytes):
-    x_np = np.random.RandomState(m + 5).randn(m, n).astype(np.float32)
+# the staged kernel's u8 shapes: the 32-value DMGET/DMSET stack (one
+# 32-row block of 2048 tiles), a ragged 384-byte row (one tile, clipped),
+# a single-row 4 KB value
+U8_SHAPES = [
+    (32, 1 << 20, 8 << 20),
+    (1000, 384, 384 * 1000 // 3),
+    (1, 4096, 1024),
+]
+
+
+@pytest.mark.parametrize("m,n,chunk_bytes,dtype",
+                         [(*s, torch.float32) for s in SHAPES]
+                         + [(*s, torch.uint8) for s in U8_SHAPES])
+def test_kernels_match_plain(cuda_device, m, n, chunk_bytes, dtype):
+    if dtype == torch.uint8:
+        x_np = np.random.RandomState(m + 5).randint(0, 256, size=(m, n)).astype(np.uint8)
+    else:
+        x_np = np.random.RandomState(m + 5).randn(m, n).astype(np.float32)
     x = torch.from_numpy(x_np).to(cuda_device)
     TT.reset_launch_counts()
     acc = _all_modes_bit_equal(x, chunk_bytes)
@@ -106,6 +121,20 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         TT._copy_csum(x.to(torch.complex64), None, 64)
     with pytest.raises(ValueError):  # block rows must divide m
         TT._copy_csum(x, None, 48)
+    # a view 4 bytes past an aligned base: the bulk-copy engine cannot
+    # describe it, and no wrapper launches on it
+    bad = torch.zeros(64 * 256 + 1, device=cuda_device)[1:].view(64, 256)
+    assert bad.data_ptr() % 16
+    TT.reset_launch_counts()
+    for call in (lambda: TT._staged_copy_csum(bad, 64, 64),
+                 lambda: TT.device_copy_with_checksum_pallas(bad),
+                 lambda: TT._copy_csum(bad, None, 64),
+                 lambda: TT.device_copy(bad)):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(ValueError):  # a stage that is not whole row groups
+        TT._staged_copy_csum(x, 64, 12)
+    assert all(v == 0 for v in TT.launches.values()), TT.launches
 
 
 def test_staged_kernel_launches_on_every_card(cuda_device):
@@ -165,7 +194,8 @@ def test_echo_on_card_runs_the_kernels(cuda_device, mode, per_hop):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8,
                                    torch.float64, torch.bool])
-@pytest.mark.parametrize("shape", [(8192, 2048), (1000, 128), (1, 384), (3, 640)])
+@pytest.mark.parametrize("shape", [(8192, 2048), (1000, 128), (1, 384), (3, 640),
+                                   (32, 1 << 20), (1000, 384), (1, 4096)])
 def test_copy_blocks_matches_plain(cuda_device, shape, dtype):
     g = torch.Generator().manual_seed(shape[0])
     x = torch.randint(0, 256, shape, generator=g).to(dtype).to(cuda_device)
@@ -210,11 +240,13 @@ def test_k1_and_k2_back_to_back_leave_no_counter_dirty(cuda_device):
         ((12, 256), torch.float32),      # br = 12: ragged groups
         ((1, 128), torch.float32),       # br = 1
         ((300, 384), torch.bfloat16),    # br = 4: half the groups empty
+        ((32, 1 << 20), torch.uint8),    # the DMSET stack: one block, no counter
+        ((1000, 384), torch.uint8),      # a ragged tile: 125 blocks
     ]):
         x = _seeded(shape, dtype, i, cuda_device)
         br = TT._fit_block_rows(shape[0])
         carry = _seeded((1, shape[1]), torch.float32, 100 + i, cuda_device)
-        cases.append((x, br, TT.pallas_stage_rows(x, br), carry,
+        cases.append((x, br, TT.staged_plan(x, br).stage_rows, carry,
                       TT.copy_csum_plain(x, None, br)[1],
                       TT.copy_csum_plain(x, carry, br)[1]))
     got = []
@@ -242,7 +274,8 @@ def test_two_streams_at_once_give_the_same_bits(cuda_device):
                 for x, plain in zip(xs, plains):
                     br = TT._fit_block_rows(x.shape[0])
                     got.append((TT._copy_csum(x, None, br)[1], plain))
-                    got.append((TT._staged_copy_csum(x, br, TT.pallas_stage_rows(x, br))[1], plain))
+                    got.append((TT._staged_copy_csum(x, br, TT.staged_plan(x, br).stage_rows)[1],
+                                plain))
     torch.cuda.synchronize()
     assert all(torch.equal(a, p) for a, p in got)
     assert {(cuda_device.index, s.cuda_stream) for s in streams} <= set(TT._counters)

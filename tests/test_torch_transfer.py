@@ -89,7 +89,7 @@ def _port_all_modes(x, chunk_bytes):
         x, torch.zeros((1, n), dtype=torch.float32, device=x.device), slot, br
     )
     assert res["into"][0].data_ptr() == slot.data_ptr()
-    res["staged"] = TT._staged_copy_csum(x, br, TT.pallas_stage_rows(x, br))
+    res["staged"] = TT._staged_copy_csum(x, br, TT.staged_plan(x, br).stage_rows)
     return res
 
 
@@ -286,14 +286,100 @@ def test_plan_helpers_match_jax():
         assert TT._fit_block_rows(m) == JT._fit_block_rows(m)
 
 
-def test_stage_rows_fit_the_staged_kernel():
-    for dtype, fit in [(torch.float32, 64), (torch.bfloat16, 128),
-                       (torch.uint8, 256), (torch.float64, 32)]:
-        v = torch.zeros((8192, 2048), dtype=dtype)
-        sr = TT.pallas_stage_rows(v, 256)
-        assert sr == fit and sr % 8 == 0
-        assert sr * 128 * v.element_size() <= 32768
-    assert TT.pallas_stage_rows(torch.zeros((1, 128)), 1) == 8
+# lane views the staged kernel is planned for: the echo frame in four
+# dtypes, the DMGET/DMSET stack, a 1 MiB and a 4 KB cache value, a ragged
+# u8 row (384 bytes: one 512-byte tile, clipped), and blocks of 1, 4, 12,
+# 40 and 200 rows
+PLAN_CASES = [
+    ((8192, 2048), torch.float32), ((8192, 2048), torch.bfloat16),
+    ((8192, 2048), torch.uint8), ((8192, 2048), torch.float64),
+    ((32, 1048576), torch.uint8), ((256, 4096), torch.uint8),
+    ((1, 4096), torch.uint8), ((1000, 384), torch.uint8),
+    ((1, 128), torch.float32), ((300, 384), torch.bfloat16),
+    ((12, 256), torch.float32), ((40, 640), torch.int16),
+    ((200, 512), torch.float64), ((1000, 384), torch.int64),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", PLAN_CASES)
+def test_stage_rows_fit_the_staged_kernel(shape, dtype):
+    m, n = shape
+    v = torch.empty(shape, dtype=dtype)
+    br = TT._fit_block_rows(m)
+    plan = TT.staged_plan(v, br)
+    # the tile is the same number of bytes whatever the dtype
+    assert plan.tile_cols * v.element_size() == TT._TILE_BYTES == 512
+    # every column lies in exactly one tile: tile t holds [t * w, (t + 1) * w) ∩ [0, n)
+    cover = torch.zeros(n, dtype=torch.int32)
+    for t in range(plan.ntiles):
+        cover[t * plan.tile_cols:(t + 1) * plan.tile_cols] += 1
+    assert torch.equal(cover, torch.ones(n, dtype=torch.int32))
+    assert plan.items == (m // br) * plan.ntiles
+    # a stage is whole row groups (or the whole block of fewer than 8 rows),
+    # no more than the block needs, and the stages of an item cover its block
+    sr = plan.stage_rows
+    assert sr % 8 == 0 or sr == br < 8
+    assert sr < br + 8 and -(-br // sr) * sr >= br
+    # a stage, the ring and the kernels' CTAs fit the shared memory
+    assert sr * TT._TILE_BYTES <= TT._STAGE_BYTES
+    assert TT._STAGED_CTAS_PER_SM * TT._STAGED_SMEM <= TT._SMEM_PER_SM
+    assert TT._COPY_CTAS_PER_SM * TT._COPY_SMEM <= TT._SMEM_PER_SM
+    # transfer.cu's tensor-map box, one tile's 8-byte words x the stage's
+    # rows x one block: the engine takes at most 256 elements a dimension
+    assert max(TT._TILE_BYTES // 8, sr, 1) <= 256
+    assert plan.grid(132) == min(plan.items, 132 * TT._STAGED_CTAS_PER_SM)
+    TT._check_stage_rows(br, sr)  # what the wrapper (and transfer.cu) takes
+
+
+# the staged kernel's u8 shapes: the stack of a 32-value DMSET at a small
+# width (one 32-row block, 8 tiles), and the ragged 384-byte row
+STAGED_U8 = [(32, 4096), (1000, 384)]
+
+
+@pytest.mark.parametrize("m,n", STAGED_U8)
+def test_staged_plain_matches_the_jax_dma_kernel_on_u8(m, n):
+    """The port's staged path on the CPU (its plain version) against the
+    JAX package's DMA kernel in interpret mode.  Every lane sum of u8
+    values here is below 2**24, so the accumulators are exact and
+    bit-equal; the frame checksum is a float32 sum past 2**24, held
+    within RTOL of sum|x|."""
+    x_np = np.random.RandomState(m + n).randint(0, 256, size=(m, n)).astype(np.uint8)
+    v = jnp.asarray(x_np)
+    br = JT._fit_block_rows(m)
+    dma_out, dma = JT.device_copy_with_checksum_dma(
+        v, br, JT.pallas_stage_rows(v, br), interpret=True
+    )
+    _, jax_acc = _jax_acc(x_np)
+    x = torch.from_numpy(x_np)
+    assert TT._fit_block_rows(m) == br
+    sr = TT.staged_plan(x, br).stage_rows
+    out, acc = TT._staged_copy_csum(x, br, sr)
+    out_d, csum = TT.device_copy_with_checksum_dma(x, br, sr)
+    assert out.numpy().tobytes() == out_d.numpy().tobytes() == np.asarray(dma_out).tobytes()
+    np.testing.assert_array_equal(acc.numpy(), jax_acc)
+    assert torch.equal(csum, TT.fold_checksum(acc))
+    assert abs(float(csum) - float(dma)) <= RTOL * float(x_np.astype(np.float64).sum())
+
+
+def test_unaligned_view_is_refused_before_any_launch():
+    """The bulk-copy engine needs a 16-byte aligned base: a view at an
+    odd offset is refused by the planner and by the wrappers' checks on
+    the CPU as on the card, and nothing launches."""
+    flat = torch.zeros(64 * 256 + 4, dtype=torch.uint8)
+    v = flat[4:].view(64, 256)
+    assert v.data_ptr() % 16 and v.is_contiguous()
+    TT.reset_launch_counts()
+    with pytest.raises(ValueError):
+        TT.staged_plan(v, 64)
+    with pytest.raises(ValueError):
+        TT.device_copy_with_checksum_dma(v, 64, 64)
+    with pytest.raises(ValueError):
+        TT.device_copy_with_checksum_pallas(v)
+    with pytest.raises(ValueError):  # what the K1, K2 and copy_blocks launchers check
+        TT._check_operand(v, "payload", v)
+    with pytest.raises(ValueError):  # a stage that is not whole row groups
+        TT._staged_copy_csum(flat[:64 * 256].view(64, 256), 64, 12)
+    assert all(c == 0 for c in TT.launches.values())
 
 
 def test_cpu_path_launches_no_kernel():
