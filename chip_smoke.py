@@ -13,7 +13,30 @@ file.  Phases, each fatal on failure:
              cuobjdump -sass of the built library where the toolkit has
              it, the bulk-copy instructions in K2's code (UTMALDG and
              UTMASTG) and copy_blocks' (UBLKCP), failing without them;
-2. kernels — hold each hand-written kernel against its plain PyTorch
+2. examples — the port's device examples (examples_torch/: ici_echo,
+             batched_ps, sharded_ps, replicated_ps, streaming_generate,
+             disagg_serving, http_server --demo), each in a child that
+             runs it with runpy as __main__ on the card and prints the
+             kernels' launch counts.  Every child exits 0 and prints the
+             string tests/test_examples.py expects of its JAX
+             counterpart, and launches what its JAX counterpart's path
+             transmits: one K1 for ici_echo's request hop and one for each
+             of sharded_ps's four scatter Puts, no kernel for the others
+             (their values stay where they are or cross TCP as host
+             bytes).  Prints each example's launches and wall time;
+3. sanitize — the cuda lane of incubator_brpc_tpu_torch/tools/sanitize.py:
+             compute-sanitizer's memcheck, racecheck, synccheck and
+             initcheck over the case launcher (K1 whole, with a carry,
+             chained and into a slot, K2 and K2 into a slot, copy_blocks,
+             on the kernels cases cut to at most 2 MiB), failing on any
+             report.  Where the tool refuses the card before any case
+             runs ("Device not supported"), its words are printed, no
+             tool check is claimed, and the case launcher runs --guarded
+             without it (guard bands, poisoned outputs and scratch,
+             arrival counters back at zero, a second stream at once),
+             failing on any mismatch.  Prints each run's time and the
+             launches it checked;
+4. kernels — hold each hand-written kernel against its plain PyTorch
              version on the card: copied bytes equal, and the lane
              accumulator (or checksum) of K1 whole frame, K1 chained
              chunks, K1 into a slot, K1 from a random carry, the fused
@@ -24,7 +47,7 @@ file.  Phases, each fatal on failure:
              cache and stream paths' lane views (a 1 MiB value as (256,
              4096) u8, the 4 KB value as (1, 4096) u8, the DMGET stack as
              (32, 1048576) u8, a stream frame as (256, 1024) f32);
-3. echo    — the first main path: a 64 MB float32 (8192, 2048) tensor
+5. echo    — the first main path: a 64 MB float32 (8192, 2048) tensor
              echoed through Server.start_ici / Channel under every chunk
              mode (off, fused, pipelined, pallas).  Per mode: the
              response equals the request, is a fresh CUDA tensor,
@@ -33,7 +56,7 @@ file.  Phases, each fatal on failure:
              launch per transmit: the fold is the kernels' tail).  Prints
              the marginal per-echo time (chained hi - lo echoes,
              synchronized);
-4. ps      — the second main path: the batched parameter server at
+6. ps      — the second main path: the batched parameter server at
              d = 6144 (bench.py's bench_batched_device_op width) on
              Server(enable_batching=True).start_ici.  A seeded (6144,
              6144) float32 W is Put and Got back over ici:// (byte-equal,
@@ -44,7 +67,7 @@ file.  Phases, each fatal on failure:
              control product with TF32 on must fail that same check.
              Prints Put/Get time and GB/s, qps/p50/p99 per point, the
              on/off speedup and a profiler window's device-busy share;
-5. shard   — the sharded PS at d = 6144: four PsService shard servers
+7. shard   — the sharded PS at d = 6144: four PsService shard servers
              at ici://slice0/chip{0..3} on the card behind
              sharded_ps_channel (each sub-channel's timeout stated).
              scatter_param sends W as 4 Puts of (1536, 6144) f32, one K1
@@ -62,7 +85,7 @@ file.  Phases, each fatal on failure:
              (moved == the scheme delta, one epoch bump, no checksum
              failure, only ERPC error codes).  The native murmur3_32
              must be in use;
-6. cache   — the third main path: an HBMCacheService behind
+8. cache   — the third main path: an HBMCacheService behind
              ServerOptions.redis_service on Server.start_ici over a 1 GiB
              store on the card.  2048 SETs of 1 MiB device values over
              ici:// (one K1 per hop; the store adopts each delivered
@@ -76,7 +99,7 @@ file.  Phases, each fatal on failure:
              evictions, hbm_used and a device-busy share.  Then a stream
              over ici:// echoes 1 MiB device frames (one K1 per frame per
              hop);
-7. dcn     — the DCN bridge: a second process started with subprocess
+9. dcn     — the DCN bridge: a second process started with subprocess
              (a fresh interpreter on the same card) hosts an echo server
              at ici://slice6/chip0 and a 1 GiB cache node at chip1 behind
              listen_dcn; tpu://fabric resolves both.  A 64 MB float32
@@ -86,7 +109,7 @@ file.  Phases, each fatal on failure:
              tensors on the parent's device, K1 on each receiving hop
              (the child's launches read back over its stdin/stdout), and
              K1 on the DCN-uploaded frame bit-equal to plain;
-8. cluster — the clustered cache tier: three local 1 GiB nodes at
+10. cluster — the clustered cache tier: three local 1 GiB nodes at
              ici://slice5/chip{0,1,2} and the child's node across DCN
              behind one CacheChannel (mesh_locality from slice5/chip0).
              2048 SETs and GETs of 1 MiB device values routed as the
@@ -101,7 +124,7 @@ file.  Phases, each fatal on failure:
              behind, one delete, repair_keys == 64); a live 2 -> 3
              reshard of 1024 keys with collective_steps < keys_moved;
              the native murmur3_32 must be in use, and is timed;
-9. serve   — the fourth main path: disaggregated prefill/decode serving
+11. serve  — the fourth main path: disaggregated prefill/decode serving
              (bench_disagg_serving's 3 layers, 2 decode replicas, 32
              tokens a session, parallelism 1, 8 and 32, a 64 MB store) at
              dim = 6144 against the monolithic DecodeLoop.  Disagg tokens
@@ -115,7 +138,7 @@ file.  Phases, each fatal on failure:
              decode step at buckets 1, 8 and 32 is held to float64 as the
              Forward product is (states and row sums), and a TF32 step
              must fail that check;
-10. http   — the HTTP front on the card: GenerateSSE over
+12. http   — the HTTP front on the card: GenerateSSE over
              Channel(protocol="http") on a d = 6144 decode loop, its
              tokens equal to the tpu_std stream path's at p = 1 (at p = 8
              the differing tokens are counted), with time to the first
@@ -134,7 +157,7 @@ file.  Phases, each fatal on failure:
              internal_port only; rpc_dump of PS Forward calls (device x
              over ici://, one host-view pull per sample) replayed by
              rpc_replay to a fresh server, each y held to float64;
-11. mesh   — the single-controller mesh (parallel/mesh.py) of 4 virtual
+13. mesh   — the single-controller mesh (parallel/mesh.py) of 4 virtual
              chips on the card: each collective lowering over a (4 *
              2048, 2048) f32 tensor held to a plain version (gather,
              all_to_all, the ppermute ring and the hedged pick
@@ -154,7 +177,7 @@ file.  Phases, each fatal on failure:
              mesh at dim 6144, batch 256, 5 steps (the loss falls at
              every step, step 1 held to a float64 plain step, the median
              step time);
-12. native — the C++ engine (incubator_brpc_tpu_torch/native/, built
+14. native — the C++ engine (incubator_brpc_tpu_torch/native/, built
              with g++ and gcc at first use, beside the nvcc builds; the
              call boundary, fastcall or ctypes, printed): rpc_press
              --native's 4 KB echo for 2 s against a native server, the
@@ -180,7 +203,7 @@ file.  Phases, each fatal on failure:
              p = 32 Forward rows printed with the dispatches (start, rows,
              time) that ran while each waited, the dispatch gaps and the
              GC pauses of the window;
-13. proto  — the other protocols on one port Server on one TCP port: a
+15. proto  — the other protocols on one port Server on one TCP port: a
              PsService holding W at d = 6144 on the card (batching on), an
              echo service, and the thrift, mongo, nshead and RTMP
              adaptors.  A tpu_std Forward load at p = 8 (every y held to
@@ -194,7 +217,7 @@ file.  Phases, each fatal on failure:
              HLS segments, playlist and FLV archive equal to a plain
              segmenter's and writer's; Server.stop() sending GOAWAY with
              4 h2 streams in flight, each finishing with its reply;
-14. witness — the analysis toolchain's runtime witnesses on the card,
+16. witness — the analysis toolchain's runtime witnesses on the card,
              in a child interpreter (this script with --witness-child)
              that arms the lock witness and the transfer guard before
              the port creates a lock: a seeded .item() of a CUDA tensor
@@ -215,7 +238,7 @@ file.  Phases, each fatal on failure:
              armed against disarmed, in ABBA turns; "unresolved" when the
              difference is inside the disarmed turns' spread) and the
              phase's wall time with the card's name and power limit;
-15. times  — each kernel's time at the main path's shapes beside its
+17. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and its library call: the whole-frame
              transmits (K1 and K2 on the 64 MB frame, K2 on the 32 MiB u8
              stack, with the median and spread of their windows), and
@@ -235,7 +258,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 15 (transmit_ms: K2 on the stack and copy_blocks beside
+times of phase 17 (transmit_ms: K2 on the stack and copy_blocks beside
 out.copy_ included) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
@@ -410,7 +433,7 @@ REPLACES = {
 }
 # no path of either package calls device_copy: chip_smoke launches
 # copy_blocks only in these phases, never on a main path
-OFF_PATH = {"copy_blocks": "kernels, times"}
+OFF_PATH = {"copy_blocks": "kernels, sanitize, times"}
 # per hop of a 64 MB frame at 8 MB chunks (8 chunks): expected launches
 PER_HOP = {
     "off": {"copy_csum_blocks": 1, "copy_csum_staged": 0},
@@ -5809,6 +5832,113 @@ def tune_main() -> int:
     return 0
 
 
+# [examples]: each device example of examples_torch/ with its arguments,
+# the string tests/test_examples.py expects of its JAX counterpart, and
+# the kernels its JAX counterpart's path transmits through (counted on
+# the CPU by tests/test_torch_examples.py): ici_echo's request hop and
+# sharded_ps's four scatter Puts cross ici:// with a device tensor;
+# the others keep their values in place or send host bytes over TCP
+EXAMPLES = (
+    ("ici_echo.py", (), "attachment bytes: 4194304 | device-resident: True",
+     {"copy_csum_blocks": 1}),
+    ("batched_ps.py", (), "batched gets coalesced into", {}),
+    ("sharded_ps.py", (), "sharded forward merged 4 partial results",
+     {"copy_csum_blocks": 4}),
+    ("replicated_ps.py", (), "acknowledged writes still readable", {}),
+    ("streaming_generate.py", (), "continuously-batched streams", {}),
+    ("disagg_serving.py", (), "migrated live with prefill reused", {}),
+    ("http_server.py", ("--demo",), "'message': 'restful'", {}),
+)
+# an example's child: runs it as __main__, then prints the launch counts
+EXAMPLE_CHILD = """
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from incubator_brpc_tpu_torch.ops import transfer
+print("LAUNCHES " + json.dumps(transfer.launches), flush=True)
+"""
+EXAMPLE_TIMEOUT_S = 120
+
+
+def phase_examples(smi):
+    """Each device example in a child on the card; returns the children's
+    launch counts summed."""
+    root = pathlib.Path(__file__).resolve().parent
+    print(f"[examples] card: {smi}")
+    totals = {}
+    t_all = time.perf_counter()
+    for script, args, expect, launched in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_CHILD, str(root / "examples_torch" / script), *args],
+            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S, cwd=root,
+        )
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"example {script} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        check(expect in proc.stdout, f"example {script} did not print {expect!r}: "
+              f"{proc.stdout[-2000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+        check(len(line) == 1, f"example {script} printed no launch counts")
+        counts = json.loads(line[0][len("LAUNCHES "):])
+        want = {k: launched.get(k, 0) for k in counts}
+        check(counts == want, f"example {script} launched {counts}, its JAX counterpart's "
+              f"path transmits {want}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        print(f"[examples] {script:22} {' '.join(args):6} ok in {secs:.2f} s, launches "
+              f"{counts}")
+    print(f"[examples] {len(EXAMPLES)} examples in {time.perf_counter() - t_all:.1f} s, "
+          f"launches {totals}")
+    return totals
+
+
+def phase_sanitize():
+    """The cuda sanitizer lane, or where compute-sanitizer refuses the
+    card, the case launcher's guarded run without it."""
+    from incubator_brpc_tpu_torch.tools import sanitize
+
+    t0 = time.perf_counter()
+    try:
+        results = sanitize.cuda_lane("cuda:0")
+    except sanitize.SanitizerUnsupported as refused:
+        print(f"[sanitize] compute-sanitizer ({sanitize.compute_sanitizer()}) refused this "
+              f"card before any case ran ({time.perf_counter() - t0:.1f} s), in its words:")
+        for line in str(refused).splitlines():
+            print(f"[sanitize]   {line}")
+        print(f"[sanitize] so no memcheck, racecheck, synccheck or initcheck result exists "
+              f"for this run")
+        results = None
+    for r in results or ():
+        print(f"[sanitize] {r['tool']:9} rc {r['rc']}, {r['launches']} launches checked, "
+              f"{r['seconds']:.1f} s")
+        for line in r["report"]:
+            print(f"[sanitize]   {line}")
+        check(r["rc"] == 0, f"compute-sanitizer {r['tool']} reported errors")
+        check(r["launches"] > 0, f"compute-sanitizer {r['tool']} checked no launch")
+    # the checks that need no tool, in a child (its launches are not a path's)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "incubator_brpc_tpu_torch.tools.sanitize", "--launch-cases",
+         "--device", "cuda:0", "--guarded"],
+        capture_output=True, text=True, timeout=300,
+        cwd=pathlib.Path(__file__).resolve().parent,
+    )
+    secs = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCH_CASES ")]
+    check(len(line) == 1, f"the guarded launch cases printed no summary: "
+          f"{proc.stderr[-2000:]}")
+    summary = json.loads(line[0][len("LAUNCH_CASES "):])
+    print(f"[sanitize] guarded launch cases: {summary['cases']} cases, {summary['checks']} "
+          f"checks, launches {summary['launches']}, {len(summary['mismatches'])} "
+          f"mismatches, {secs:.1f} s")
+    check(proc.returncode == 0 and not summary["mismatches"],
+          f"guarded launch cases failed: {summary['mismatches'][:10]} {proc.stderr[-1000:]}")
+    check(all(summary["launches"].values()),
+          f"a kernel never launched in the guarded cases: {summary['launches']}")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", metavar="ROOT",
@@ -5836,6 +5966,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     native_build = start_native_build()  # g++/gcc beside the nvcc builds
     smi = phase_build()
+    example_counts = phase_examples(smi)
+    phase_sanitize()
     errs, main_csum = phase_kernels(torch, T)
     echo_counts = phase_echo(torch, T, main_csum)
     ps_counts, products, ps_summary = phase_ps(torch, T)
@@ -5866,7 +5998,7 @@ def main() -> int:
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
           f"http {http_counts}; mesh {mesh_counts}; native {native_counts}; proto "
-          f"{proto_counts}; witness "
+          f"{proto_counts}; examples (children) {example_counts}; witness "
           f"(child, its whole run) "
           f"{witness['launches']}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),

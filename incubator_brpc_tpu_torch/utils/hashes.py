@@ -10,7 +10,9 @@ murmur3_32 runs natively: ``murmur3.c`` beside this file is built with
 the host C compiler (``cc``) on first use into ``_build/`` and bound
 with ctypes.  If the build fails, that is logged once and the
 pure-Python ``murmur3_32_py`` runs instead; ``murmur3_native()`` says
-which one is in use.
+which one is in use.  ``BRPC_NATIVE_SANITIZE`` (asan or tsan) builds it
+instrumented, with the native engine's flags, under a name of its own
+(``libmurmur3.<mode>-<hash>.so``), as it builds the engine.
 """
 
 from __future__ import annotations
@@ -73,19 +75,36 @@ _murmur_lock = threading.Lock()
 _murmur_c = None  # None: not tried yet; False: the build failed
 
 
+def murmur3_build(mode=None):
+    """(cc command, target) of murmur3.c's build under sanitizer ``mode``
+    (default: ``BRPC_NATIVE_SANITIZE``, as the native engine reads it):
+    the engine's instrumented flags and a target named by the mode, or
+    the plain build when no mode is set.  The command writes to
+    ``{tmp}``, a per-process temporary renamed onto the target."""
+    from incubator_brpc_tpu_torch.native import _SAN_FLAGS, SANITIZE
+
+    mode = SANITIZE if mode is None else mode
+    if mode not in _SAN_FLAGS:
+        raise ValueError(f"sanitizer mode {mode!r}: expected one of "
+                         f"{sorted(k for k in _SAN_FLAGS if k)} or ''")
+    flags = [*_CC_FLAGS, *_SAN_FLAGS[mode]]
+    digest = hashlib.sha256(_MURMUR_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()
+    name = f"libmurmur3.{mode}" if mode else "libmurmur3"
+    return (["cc", *flags, "-o", "{tmp}", str(_MURMUR_SRC)],
+            _BUILD_DIR / f"{name}-{digest[:16]}.so")
+
+
 def _build_murmur3():
     """Build murmur3.c (once per source and flags) and bind it; raises
     OSError or CalledProcessError when it cannot."""
-    src = _MURMUR_SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_CC_FLAGS).encode()).hexdigest()
-    target = _BUILD_DIR / f"libmurmur3-{digest[:16]}.so"
+    cmd, target = murmur3_build()
     if not target.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # a per-process temporary, then an atomic rename: concurrent
         # builders (test workers) never see a half-written library
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run(
-            ["cc", *_CC_FLAGS, "-o", str(tmp), str(_MURMUR_SRC)],
+            [str(tmp) if arg == "{tmp}" else arg for arg in cmd],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, target)

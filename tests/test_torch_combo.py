@@ -612,6 +612,13 @@ COPIED = {
     # "incubator_brpc_tpu.test" of the JAX package's file: its bytes are
     # length-prefixed, and the default pool takes an identical file twice
     "protos/json_test_pb2.py": {16},
+    # the .proto sources the _pb2 files were generated from, byte for
+    # byte: json_test.proto's :5 is the same proto package line
+    "protos/echo.proto": set(),
+    "protos/json_test.proto": {5},
+    "protos/legacy_meta.proto": set(),
+    "protos/rpc_meta.proto": set(),
+    "protos/trackme.proto": set(),
     "protos/legacy_meta_pb2.py": set(),
     "protos/trackme_pb2.py": set(),
     "runtime/fd.py": set(),
@@ -681,6 +688,115 @@ def test_copied_module_equals_the_jax_package(path):
     assert differ == COPIED[path]
     for line in differ:  # a reworded line is a comment or docstring line
         assert not port[line - 1].strip().startswith(("import", "from", "def", "class"))
+
+
+# proto scalar type → FieldDescriptor.TYPE_* name
+_PROTO_SCALARS = {
+    "double": "TYPE_DOUBLE", "float": "TYPE_FLOAT", "int32": "TYPE_INT32",
+    "int64": "TYPE_INT64", "uint32": "TYPE_UINT32", "uint64": "TYPE_UINT64",
+    "sint32": "TYPE_SINT32", "sint64": "TYPE_SINT64", "bool": "TYPE_BOOL",
+    "string": "TYPE_STRING", "bytes": "TYPE_BYTES",
+}
+
+
+def _parse_proto(text):
+    """(package, {message or enum full name: its members}) of a .proto
+    source: a message's members are (name, number, label, type) per field
+    (a map<K, V> field as the repeated entry message protoc makes, the
+    type a message's or an enum's full name), an enum's (name, number)
+    per value."""
+    import re
+
+    text = re.sub(r"//[^\n]*", "", text)
+    package = re.search(r"^package ([\w.]+);", text, re.M)[1]
+    tokens = re.findall(r"[{};]|map\s*<[^>]*>|[^\s{};]+", text)
+    found, scopes, stack, words = {}, {}, [package], []
+    for tok in tokens:
+        if tok == "{":
+            kind, name = words[-2], words[-1]
+            stack.append(f"{stack[-1]}.{name}")
+            found[stack[-1]], scopes[stack[-1]], words = [], kind, []
+        elif tok == "}":
+            stack.pop()
+            words = []
+        elif tok == ";":
+            line, words = " ".join(words), []
+            if len(stack) == 1:
+                continue  # syntax, package
+            if scopes[stack[-1]] == "enum":
+                name, number = re.fullmatch(r"(\w+) = (\d+)", line).groups()
+                found[stack[-1]].append((name, int(number)))
+                continue
+            label, ftype, name, number = re.fullmatch(
+                r"(?:(required|optional|repeated) )?(map\s*<[^>]*>|[\w.]+) (\w+) = (\d+)",
+                line).groups()
+            if ftype.startswith("map"):
+                entry = "".join(w.capitalize() for w in name.split("_")) + "Entry"
+                ftype, label = f"{stack[-1]}.{entry}", "repeated"
+            found[stack[-1]].append([name, int(number), label or "optional", ftype,
+                                     stack[-1]])
+        else:
+            words.append(tok)
+    for fields in (v for k, v in found.items() if scopes[k] == "message"):
+        for i, (name, number, label, ftype, scope) in enumerate(fields):
+            if ftype not in _PROTO_SCALARS and not ftype.startswith(package + "."):
+                # the innermost enclosing scope that declares it
+                while f"{scope}.{ftype}" not in found:
+                    scope = scope.rpartition(".")[0]
+                ftype = f"{scope}.{ftype}"
+            fields[i] = (name, number, label, ftype)
+    return package, found
+
+
+def _descriptor_members(file_desc):
+    """The same shape as _parse_proto's, read from a _pb2 FileDescriptor."""
+    from google.protobuf.descriptor import FieldDescriptor
+
+    types = {getattr(FieldDescriptor, v): k for k, v in _PROTO_SCALARS.items()}
+    found = {}
+
+    def enum(e):
+        found[e.full_name] = [(v.name, v.number) for v in e.values]
+
+    def message(m):
+        fields = []
+        for f in m.fields:
+            ftype = (f.message_type.full_name if f.message_type is not None
+                     else f.enum_type.full_name if f.enum_type is not None
+                     else types[f.type])
+            label = ("repeated" if f.is_repeated else "required" if f.is_required
+                     else "optional")
+            fields.append((f.name, f.number, label, ftype))
+        if not m.GetOptions().map_entry:
+            found[m.full_name] = fields
+        for e in m.enum_types:
+            enum(e)
+        for n in m.nested_types:
+            message(n)
+
+    for e in file_desc.enum_types_by_name.values():
+        enum(e)
+    for m in file_desc.message_types_by_name.values():
+        message(m)
+    return found
+
+
+@pytest.mark.parametrize("name", ["echo", "json_test", "legacy_meta", "rpc_meta", "trackme"])
+def test_proto_source_matches_the_ports_pb2(name):
+    """Every message, enum, field (name, number, label, type) and enum
+    value of protos/<name>.proto, parsed from the source, is what the
+    port's generated <name>_pb2 describes, and nothing more."""
+    import importlib
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    package, parsed = _parse_proto(
+        (root / "incubator_brpc_tpu_torch" / "protos" / f"{name}.proto").read_text())
+    desc = importlib.import_module(f"incubator_brpc_tpu_torch.protos.{name}_pb2").DESCRIPTOR
+    assert desc.package == package
+    members = _descriptor_members(desc)
+    assert parsed == members
+    assert len(members) >= 2
 
 
 @pytest.mark.parametrize("path", sorted(DIVERGED))

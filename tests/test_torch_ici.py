@@ -634,8 +634,12 @@ def _imported_modules(path):
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    paths = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    paths = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(paths) > 40
+    # the port's entry programs are scanned too: one for each JAX example
+    assert [p.name for p in examples] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
     # the native engine's bindings are scanned like every module, and its
     # C sources include nothing of either package
     assert PORT_PKG / "native" / "__init__.py" in paths
