@@ -31,11 +31,14 @@ file.  Phases, each fatal on failure:
              on the kernels cases cut to at most 2 MiB), failing on any
              report.  Where the tool refuses the card before any case
              runs ("Device not supported"), its words are printed, no
-             tool check is claimed, and the case launcher runs --guarded
-             without it (guard bands, poisoned outputs and scratch,
-             arrival counters back at zero, a second stream at once),
-             failing on any mismatch.  Prints each run's time and the
-             launches it checked;
+             tool check is claimed, and the kernels line says
+             "sanitizer": "refused" for every kernel ("clean" when all
+             four tools ran without a report).  Either way the case
+             launcher then runs --guarded without the tool (guard bands,
+             poisoned outputs and scratch, arrival counters back at
+             zero, two streams whose intervals overlap), failing on any
+             mismatch.  Prints each run's time and the launches it
+             checked;
 4. kernels — hold each hand-written kernel against its plain PyTorch
              version on the card: copied bytes equal, and the lane
              accumulator (or checksum) of K1 whole frame, K1 chained
@@ -5894,22 +5897,25 @@ def phase_examples(smi):
 
 
 def phase_sanitize():
-    """The cuda sanitizer lane, or where compute-sanitizer refuses the
-    card, the case launcher's guarded run without it."""
+    """The cuda sanitizer lane, then the case launcher's guarded run.
+    Returns what the kernels line says of the lane: "clean" when all
+    four tools ran without a report, "refused" when the tool refused
+    the card."""
     from incubator_brpc_tpu_torch.tools import sanitize
 
     t0 = time.perf_counter()
     try:
         results = sanitize.cuda_lane("cuda:0")
+        status = "clean"
     except sanitize.SanitizerUnsupported as refused:
         print(f"[sanitize] compute-sanitizer ({sanitize.compute_sanitizer()}) refused this "
               f"card before any case ran ({time.perf_counter() - t0:.1f} s), in its words:")
         for line in str(refused).splitlines():
             print(f"[sanitize]   {line}")
         print(f"[sanitize] so no memcheck, racecheck, synccheck or initcheck result exists "
-              f"for this run")
-        results = None
-    for r in results or ():
+              f"for this run: the kernels line says \"sanitizer\": \"refused\"")
+        results, status = [], "refused"
+    for r in results:
         print(f"[sanitize] {r['tool']:9} rc {r['rc']}, {r['launches']} launches checked, "
               f"{r['seconds']:.1f} s")
         for line in r["report"]:
@@ -5930,13 +5936,16 @@ def phase_sanitize():
           f"{proc.stderr[-2000:]}")
     summary = json.loads(line[0][len("LAUNCH_CASES "):])
     print(f"[sanitize] guarded launch cases: {summary['cases']} cases, {summary['checks']} "
-          f"checks, launches {summary['launches']}, {len(summary['mismatches'])} "
-          f"mismatches, {secs:.1f} s")
+          f"checks, launches {summary['launches']}, {summary['overlaps']} of "
+          f"{summary['cases']} with the two streams at once, "
+          f"{len(summary['mismatches'])} mismatches, {secs:.1f} s")
     check(proc.returncode == 0 and not summary["mismatches"],
           f"guarded launch cases failed: {summary['mismatches'][:10]} {proc.stderr[-1000:]}")
     check(all(summary["launches"].values()),
           f"a kernel never launched in the guarded cases: {summary['launches']}")
-    return summary
+    check(summary["overlaps"] == summary["cases"],
+          f"the two streams ran at once in {summary['overlaps']} of {summary['cases']} cases")
+    return status
 
 
 def main() -> int:
@@ -5967,7 +5976,7 @@ def main() -> int:
     native_build = start_native_build()  # g++/gcc beside the nvcc builds
     smi = phase_build()
     example_counts = phase_examples(smi)
-    phase_sanitize()
+    sanitizer = phase_sanitize()
     errs, main_csum = phase_kernels(torch, T)
     echo_counts = phase_echo(torch, T, main_csum)
     ps_counts, products, ps_summary = phase_ps(torch, T)
@@ -6011,6 +6020,8 @@ def main() -> int:
         else:
             check(v > 0, f"kernel {k} never launched on the main paths")
     rows = phase_times(torch, T, errs, totals)
+    for row in rows:  # "refused": no compute-sanitizer tool ran on this card
+        row["sanitizer"] = sanitizer
     rows[0]["dcn_frame_max_abs_err"] = dcn_err
     rows[1].update(k2_stack)
     # the /hotspots/device capture's profiler trace, beside [times]

@@ -44,6 +44,8 @@ import sys
 import threading
 from typing import Callable, Optional
 
+from incubator_brpc_tpu_torch.utils import sanitize_flags as _sanitize_flags
+
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE / "engine.cpp"
 _FC_SRC = _HERE / "fastcall.c"
@@ -54,25 +56,8 @@ BUILD_DIR = _HERE / "_build"
 # CPython additionally needs the runtime preloaded — see
 # sanitizer_preload(); without it the load fails and the engine is
 # unavailable (NativeEngineError), exactly like a missing toolchain.
-SANITIZE = os.environ.get("BRPC_NATIVE_SANITIZE", "").strip().lower()
-_SAN_FLAGS = {
-    "": [],
-    # O1 keeps stacks honest; no-recover makes every UBSan hit fatal so
-    # the test lane cannot pass over a diagnosed issue
-    "asan": [
-        "-fsanitize=address,undefined",
-        "-fno-sanitize-recover=undefined",
-        "-fno-omit-frame-pointer",
-        "-g",
-        "-O1",
-    ],
-    "tsan": ["-fsanitize=thread", "-fno-omit-frame-pointer", "-g", "-O1"],
-}
-if SANITIZE not in _SAN_FLAGS:
-    raise RuntimeError(
-        f"BRPC_NATIVE_SANITIZE={SANITIZE!r}: expected one of "
-        f"{sorted(k for k in _SAN_FLAGS if k)} or unset"
-    )
+SANITIZE = _sanitize_flags.check_mode(_sanitize_flags.SANITIZE)
+_SAN_FLAGS = _sanitize_flags.SAN_FLAGS
 ENGINE_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
                 *_SAN_FLAGS[SANITIZE]]
 FASTCALL_FLAGS = ["-O2", "-shared", "-fPIC", *_SAN_FLAGS[SANITIZE]]

@@ -295,11 +295,30 @@ def _arrival_counters(device: torch.device, stream: int,
         return buf
 
 
+def _scratch(x, block_rows: int, partial: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1's and K2's per-block column sums, (m // block_rows, n) f32:
+    ``partial`` when given (every element is written before it is read),
+    else a fresh tensor."""
+    shape = (x.shape[0] // block_rows, x.shape[1])
+    if partial is None:
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+    if (tuple(partial.shape) != shape or partial.dtype != torch.float32
+            or partial.device != x.device or not partial.is_contiguous()):
+        raise ValueError(
+            f"partial must be a contiguous {shape} float32 tensor on "
+            f"{x.device}, got {tuple(partial.shape)} {partial.dtype} on "
+            f"{partial.device}"
+        )
+    return partial
+
+
 def _launch_copy_csum_blocks(x, out, carry: Optional[torch.Tensor],
-                             acc: torch.Tensor, block_rows: int) -> None:
+                             acc: torch.Tensor, block_rows: int,
+                             partial: Optional[torch.Tensor] = None) -> None:
     """K1 on the current stream: copy x → out and write acc = carry
     (zeros when None) + the per-block column sums in block order, the
-    fold being the kernel's tail."""
+    fold being the kernel's tail; ``partial`` is its scratch (see
+    :func:`_scratch`)."""
     code = _check_payload(x, block_rows)
     _check_operand(out, "out", x)
     if carry is not None:
@@ -309,9 +328,7 @@ def _launch_copy_csum_blocks(x, out, carry: Optional[torch.Tensor],
     m, n = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        partial = torch.empty(
-            (m // block_rows, n), dtype=torch.float32, device=x.device
-        )
+        partial = _scratch(x, block_rows, partial)
         counters = _arrival_counters(x.device, stream, n // _K1_TILE)
         rc = lib.copy_csum_blocks(
             x.data_ptr(), out.data_ptr(), partial.data_ptr(),
@@ -323,9 +340,10 @@ def _launch_copy_csum_blocks(x, out, carry: Optional[torch.Tensor],
 
 
 def _launch_copy_csum_staged(x, out, acc: torch.Tensor, block_rows: int,
-                             stage_rows: int) -> None:
+                             stage_rows: int,
+                             partial: Optional[torch.Tensor] = None) -> None:
     """K2 on the current stream: the same outputs as K1 from a zero
-    carry, from ONE launch of persistent CTAs."""
+    carry, from ONE launch of persistent CTAs; ``partial`` as K1's."""
     code = _check_payload(x, block_rows)
     _check_operand(out, "out", x)
     _check_lanes(acc, "acc", x)
@@ -335,9 +353,7 @@ def _launch_copy_csum_staged(x, out, acc: torch.Tensor, block_rows: int,
     m, n = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        partial = torch.empty(
-            (m // block_rows, n), dtype=torch.float32, device=x.device
-        )
+        partial = _scratch(x, block_rows, partial)
         counters = _arrival_counters(
             x.device, stream, plan.ntiles * _ROW_GROUPS
         )
@@ -350,8 +366,9 @@ def _launch_copy_csum_staged(x, out, acc: torch.Tensor, block_rows: int,
     launches["copy_csum_staged"] += 1
 
 
-def _copy_csum(x, carry, block_rows: int, out=None):
-    """K1 on CUDA, the plain version on the CPU.  Returns (copy, acc)."""
+def _copy_csum(x, carry, block_rows: int, out=None, partial=None):
+    """K1 on CUDA, the plain version on the CPU (which has no scratch:
+    ``partial`` is ignored there).  Returns (copy, acc)."""
     if x.device.type == "cpu":
         return copy_csum_plain(x, carry, block_rows, out)
     if x.device.type != "cuda":
@@ -359,7 +376,7 @@ def _copy_csum(x, carry, block_rows: int, out=None):
     if out is None:
         out = torch.empty_like(x)
     acc = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_copy_csum_blocks(x, out, carry, acc, block_rows)
+    _launch_copy_csum_blocks(x, out, carry, acc, block_rows, partial)
     return out, acc
 
 
@@ -553,10 +570,11 @@ def _check_stage_rows(block_rows: int, stage_rows: int) -> None:
         )
 
 
-def _staged_copy_csum(x, block_rows: int, stage_rows: int, out=None):
+def _staged_copy_csum(x, block_rows: int, stage_rows: int, out=None,
+                      partial=None):
     """K2 on CUDA, the plain version on the CPU, each after the staging's
-    checks (so an unaligned view or a bad stage is refused on both).
-    Returns (copy, acc)."""
+    checks (so an unaligned view or a bad stage is refused on both);
+    ``partial`` as :func:`_copy_csum`'s.  Returns (copy, acc)."""
     if x.device.type == "cpu":
         staged_plan(x, block_rows)
         _check_stage_rows(block_rows, stage_rows)
@@ -566,7 +584,7 @@ def _staged_copy_csum(x, block_rows: int, stage_rows: int, out=None):
     if out is None:
         out = torch.empty_like(x)
     acc = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_copy_csum_staged(x, out, acc, block_rows, stage_rows)
+    _launch_copy_csum_staged(x, out, acc, block_rows, stage_rows, partial)
     return out, acc
 
 

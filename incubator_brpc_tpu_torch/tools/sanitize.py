@@ -3,7 +3,7 @@
     python -m incubator_brpc_tpu_torch.tools.sanitize              # asan
     python -m incubator_brpc_tpu_torch.tools.sanitize tsan -k mux  # extra args to pytest
     python -m incubator_brpc_tpu_torch.tools.sanitize cuda         # needs the card
-    python -m incubator_brpc_tpu_torch.tools.sanitize --launch-cases [--device cuda:0] [--guarded]
+    python -m incubator_brpc_tpu_torch.tools.sanitize --launch-cases [--device cpu] [--guarded]
 
 ``asan`` (ASan + UBSan, the default) and ``tsan`` build the native
 engine (``native/engine.cpp``, ``fastcall.c``) and ``utils/murmur3.c``
@@ -29,17 +29,22 @@ the tool's own words, before any case runs.
 ``kernels`` cases of ``chip_smoke.py`` (the same dtypes and row widths,
 at most 2 MiB each): K1 whole with its fold, with a carry, chained
 chunks and into an ``out=`` slot; K2 and K2 into a slot; ``copy_blocks``
-fresh and into ``out=``.  Every result is held bit-equal to the plain
-version on the same device; it exits 0 only if every one is.  On the
-CPU every wrapper runs the plain version, so the same run checks the
-plain version's own invariants (chunks chain to the whole frame, a slot
-equals a fresh output, K2's path equals K1's).  ``--guarded`` adds the
-checks that need no tool: each output lies between two poisoned guard
-bands that must come back untouched, outputs and the kernels' scratch
-start poisoned (an element a kernel does not write shows as a
-mismatch), the arrival counters must be back at zero after every
-launch, and every case runs again on a second stream concurrently with
-the first.
+fresh and into ``out=``.  It runs on the card unless ``--device cpu``
+is given, and raises without one.  Every result is held bit-equal to
+the plain version on the same device; it exits 0 only if every one is
+and, on the card, every kernel launched.  On the CPU every wrapper runs
+the plain version, so ``--device cpu`` checks the plain version's own
+invariants (chunks chain to the whole frame, a slot equals a fresh
+output, K2's path equals K1's) and launches nothing.  ``--guarded``
+adds the checks that need no tool: each output lies between two
+poisoned guard bands that must come back untouched, outputs start
+poisoned and each K1/K2 launch is handed a scratch ``partial`` of NaNs
+(an element a kernel does not write, or reads before writing, shows as
+a mismatch), the arrival counters must be back at zero after every
+launch, and on the card the cases run on two streams at once: both are
+held behind one gate until the host has queued them (after a first run
+on the current stream), and events on each must bracket intervals that
+overlap.
 """
 
 from __future__ import annotations
@@ -70,12 +75,15 @@ LANE_TESTS = (
 )
 # tsan only: the one lane case that runs an XLA computation (the JAX
 # package's PsService Forward, held against the port's) on threads the
-# JAX package's engine started.  XLA's CPU runtime (libjax_common.so) is
-# not instrumented, so TSan sees its new/delete and memcpy but not the
-# atomics that order them, and reports races inside tsl::AsyncValue and
-# xla::CpuAsyncExecutionTracker; ignoring that library's interceptors
-# (called_from_lib) unpairs its mutexes instead.  The JAX package's own
-# lane runs no XLA computation on engine threads and reports nothing
+# JAX package's engine started; its port half, the batched Forwards
+# through the port engine's burst collector, is a case of its own
+# (test_forward_through_the_engine_batches) that the lane runs.  XLA's
+# CPU runtime (libjax_common.so) is not instrumented, so TSan sees its
+# new/delete and memcpy but not the atomics that order them, and reports
+# races inside tsl::AsyncValue and xla::CpuAsyncExecutionTracker;
+# ignoring that library's interceptors (called_from_lib) unpairs its
+# mutexes instead.  The JAX package's own lane runs no XLA computation
+# on engine threads and reports nothing
 TSAN_DESELECT = (
     "tests/test_torch_native.py::"
     "test_forward_through_the_engine_batches_and_equals_the_jax_package",
@@ -109,6 +117,10 @@ CASES = (
     ("stream frame (256, 1024) f32", (256, 1024), "float32"),
 )
 GUARD_BYTES = 4096  # each guard band; keeps the output 16-byte aligned
+# ~0.25 s of the card's clock: far longer than the host takes to queue
+# both streams' launches of one case once its kernels are loaded (1-2 ms
+# on an H100's host; a kernel's first launch held it 100 ms and more)
+GATE_CYCLES = 500_000_000
 POISON = 0xFF  # a NaN in every float type, -1 in the integers
 
 
@@ -243,8 +255,8 @@ def _payload(torch, shape, dtype, seed, device):
 
 
 class _Guarded:
-    """Output buffers between poisoned guard bands, and the checks
-    --guarded adds around each launch."""
+    """Output buffers between poisoned guard bands, poisoned scratch, and
+    the checks --guarded adds around each launch."""
 
     def __init__(self, torch, T, device):
         self.torch, self.T, self.device = torch, T, device
@@ -260,12 +272,11 @@ class _Guarded:
         view = buf[GUARD_BYTES:GUARD_BYTES + nbytes].view(like.dtype)
         return view.view(like.shape)
 
-    def poison_scratch(self, blocks, n):
-        """Hand the next same-sized allocation (a kernel's ``partial``, one
-        float32 row a row block) a poisoned block: the caching allocator
-        reuses a freed block of that size on this stream."""
-        block = self.torch.full((blocks, n), float("nan"), device=self.device)
-        del block
+    def scratch(self, rows, n, block_rows):
+        """A kernel's ``partial`` (one float32 row a row block), all NaN:
+        an element read before the kernel wrote it reaches the
+        accumulator as a NaN."""
+        return self.torch.full((rows // block_rows, n), float("nan"), device=self.device)
 
     def problems(self) -> List[str]:
         torch = self.torch
@@ -281,19 +292,23 @@ class _Guarded:
         return found
 
 
-def launch_cases(device: str = "cpu", guarded: bool = False) -> dict:
-    """Run every case's launches on ``device`` against the plain version.
-    Returns {device, cases, launches, checks, mismatches}."""
+def launch_cases(device=None, guarded: bool = False) -> dict:
+    """Run every case's launches on ``device`` (default: the card,
+    through ``device_for_chip(0)``, which raises without one) against the
+    plain version.  Returns {device, cases, launches, checks, overlaps,
+    mismatches}; ``overlaps`` counts the guarded cases whose two streams
+    were in flight at once."""
     import torch
 
     from incubator_brpc_tpu_torch.ops import transfer as T
+    from incubator_brpc_tpu_torch.parallel.mesh import device_for_chip
 
-    dev = torch.device(device)
+    dev = device_for_chip(0, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     T.reset_launch_counts()
     mismatches: List[str] = []
-    checks = 0
+    checks = overlaps = 0
 
     def hold(name, got, want):
         nonlocal checks
@@ -302,9 +317,14 @@ def launch_cases(device: str = "cpu", guarded: bool = False) -> dict:
                 got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)):
             mismatches.append(name)
 
-    streams = [None]
-    if guarded and dev.type == "cuda":
-        streams.append(torch.cuda.Stream(dev))
+    # guarded on the card: each case runs first on the current stream
+    # (a first launch of a kernel loads it, which holds the host), then
+    # on two streams of its own, both held behind one gate (a sleep on
+    # the current stream) until the host has queued both, so that they
+    # run at once; events bracket each
+    concurrent = guarded and dev.type == "cuda"
+    side = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)] if concurrent else []
+    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     for i, (case, shape, dtype_name) in enumerate(CASES):
         dtype = getattr(torch, dtype_name)
         x = _payload(torch, shape, dtype, SEED + i, dev)
@@ -317,46 +337,57 @@ def launch_cases(device: str = "cpu", guarded: bool = False) -> dict:
         sr = T.staged_plan(x, br).stage_rows
         _, _, chunks = T.chunk_plan_for(x, max(1, x.nbytes // 4))
         runs = []
-        for s in streams:
+        for s in [None, *side]:
+            if s is not None and s is side[0]:
+                gate = torch.cuda.Event(enable_timing=True)
+                gate.record()
+                torch.cuda._sleep(GATE_CYCLES)
             g = _Guarded(torch, T, dev) if guarded else None
 
             def out(what, g=g):
                 return g.empty(what, x) if g else torch.empty_like(x)
 
             def scratch(rows=m, g=g):
-                if g:
-                    g.poison_scratch(rows // br, n)
+                return g.scratch(rows, n, br) if g else None
 
             ctx = torch.cuda.stream(s) if s is not None else contextlib.nullcontext()
             with ctx:
                 if s is not None:
-                    s.wait_stream(torch.cuda.current_stream(dev))
+                    s.wait_stream(main)
+                    span = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    span[0].record(s)
                 got = {}
-                scratch()
-                got["K1 whole"] = T._copy_csum(x, None, br, out=out("K1 whole"))
-                scratch()
-                got["K1 carry"] = T._copy_csum(x, carry, br, out=out("K1 carry"))
+                got["K1 whole"] = T._copy_csum(x, None, br, out("K1 whole"), scratch())
+                got["K1 carry"] = T._copy_csum(x, carry, br, out("K1 carry"), scratch())
                 acc_c, outs = zeros, []
                 for off, rows in chunks:
-                    scratch(rows)
-                    o, acc_c = T.device_copy_with_checksum_chunk(x[off:off + rows], acc_c, br)
+                    o, acc_c = T._copy_csum(x[off:off + rows], acc_c, br, None, scratch(rows))
                     outs.append(o)
                 got["K1 chained"] = (torch.cat(outs), acc_c)
-                scratch()
-                got["K1 slot"] = T.device_copy_with_checksum_chunk_into(
-                    x, zeros, out("K1 slot"), br)
-                scratch()
-                got["K2"] = T._staged_copy_csum(x, br, sr, out=out("K2"))
-                scratch()
-                k2_slot, k2_csum = T.device_copy_with_checksum_dma_into(x, out("K2 slot"), br, sr)
+                got["K1 slot"] = T._copy_csum(x, zeros, br, out("K1 slot"), scratch())
+                got["K2"] = T._staged_copy_csum(x, br, sr, out("K2"), scratch())
+                k2_slot, k2_acc = T._staged_copy_csum(x, br, sr, out("K2 slot"), scratch())
+                k2_csum = T.fold_checksum(k2_acc)
                 _, k1_csum = T.device_copy_with_checksum(x)
                 copy_fresh = T.device_copy(x)
                 copy_into = T.device_copy(x, out=out("copy_blocks out="))
-            runs.append((s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g))
+                if s is not None:
+                    span[1].record(s)
+            runs.append((s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g,
+                         span if s is not None else None))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        for s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g in runs:
-            tag = f"{case}" + (" (second stream)" if s is not None else "")
+        if concurrent:
+            (a0, b0), (a1, b1) = [[gate.elapsed_time(e) for e in r[-1]] for r in runs[1:]]
+            if a1 < b0 and a0 < b1:
+                overlaps += 1
+            else:
+                mismatches.append(f"{case}: the two streams did not run at once "
+                                  f"({a0:.3f}-{b0:.3f} ms, {a1:.3f}-{b1:.3f} ms)")
+        for j, (s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g, _) in \
+                enumerate(runs):
+            tag = f"{case}" + (f" (stream {j})" if s is not None else "")
             for name, (o, acc) in got.items():
                 hold(f"{name} copy, {tag}", o, x)
                 hold(f"{name} accumulator, {tag}", acc, acc_pc if name == "K1 carry" else acc_p)
@@ -368,7 +399,7 @@ def launch_cases(device: str = "cpu", guarded: bool = False) -> dict:
             if g is not None:
                 mismatches.extend(f"{p}, {tag}" for p in g.problems())
     return {"device": str(dev), "cases": len(CASES), "launches": dict(T.launches),
-            "checks": checks, "mismatches": mismatches}
+            "checks": checks, "overlaps": overlaps, "mismatches": mismatches}
 
 
 # ---------------------------------------------------------------------------
@@ -380,12 +411,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "--launch-cases":
         ap = argparse.ArgumentParser(prog="sanitize --launch-cases")
-        ap.add_argument("--device", default="cpu")
+        ap.add_argument("--device", default=None,
+                        help="default: the card (raises without one); cpu checks the "
+                             "plain versions' invariants")
         ap.add_argument("--guarded", action="store_true")
         args = ap.parse_args(argv[1:])
         summary = launch_cases(args.device, args.guarded)
         print("LAUNCH_CASES " + json.dumps(summary), flush=True)
-        return 1 if summary["mismatches"] else 0
+        # on the card, a kernel that never launched checked nothing
+        unlaunched = summary["device"].startswith("cuda") and not all(
+            summary["launches"].values())
+        return 1 if summary["mismatches"] or unlaunched else 0
     mode = argv.pop(0) if argv and not argv[0].startswith("-") else "asan"
     if mode == "cuda":
         results = cuda_lane()

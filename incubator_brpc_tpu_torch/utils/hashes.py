@@ -26,6 +26,8 @@ import struct
 import subprocess
 import threading
 
+from incubator_brpc_tpu_torch.utils import sanitize_flags
+
 # ---- crc32c (Castagnoli, poly 0x1EDC6F41 reflected = 0x82F63B78) ----------
 _CRC32C_TABLE = []
 
@@ -76,35 +78,28 @@ _murmur_c = None  # None: not tried yet; False: the build failed
 
 
 def murmur3_build(mode=None):
-    """(cc command, target) of murmur3.c's build under sanitizer ``mode``
+    """(cc flags, target) of murmur3.c's build under sanitizer ``mode``
     (default: ``BRPC_NATIVE_SANITIZE``, as the native engine reads it):
     the engine's instrumented flags and a target named by the mode, or
-    the plain build when no mode is set.  The command writes to
-    ``{tmp}``, a per-process temporary renamed onto the target."""
-    from incubator_brpc_tpu_torch.native import _SAN_FLAGS, SANITIZE
-
-    mode = SANITIZE if mode is None else mode
-    if mode not in _SAN_FLAGS:
-        raise ValueError(f"sanitizer mode {mode!r}: expected one of "
-                         f"{sorted(k for k in _SAN_FLAGS if k)} or ''")
-    flags = [*_CC_FLAGS, *_SAN_FLAGS[mode]]
+    the plain build when no mode is set."""
+    mode = sanitize_flags.check_mode(sanitize_flags.SANITIZE if mode is None else mode)
+    flags = [*_CC_FLAGS, *sanitize_flags.SAN_FLAGS[mode]]
     digest = hashlib.sha256(_MURMUR_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()
     name = f"libmurmur3.{mode}" if mode else "libmurmur3"
-    return (["cc", *flags, "-o", "{tmp}", str(_MURMUR_SRC)],
-            _BUILD_DIR / f"{name}-{digest[:16]}.so")
+    return flags, _BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def _build_murmur3():
     """Build murmur3.c (once per source and flags) and bind it; raises
     OSError or CalledProcessError when it cannot."""
-    cmd, target = murmur3_build()
+    flags, target = murmur3_build()
     if not target.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # a per-process temporary, then an atomic rename: concurrent
         # builders (test workers) never see a half-written library
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run(
-            [str(tmp) if arg == "{tmp}" else arg for arg in cmd],
+            ["cc", *flags, "-o", str(tmp), str(_MURMUR_SRC)],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, target)

@@ -657,14 +657,15 @@ DIVERGED = {
                           ("insert", 726, 726, 745, 754), ("replace", 798, 799, 826, 827)],
     "protocols/tpu_std.py": [("replace", 237, 238, 237, 238)],
     "observability/rpc_dump.py": [("replace", 50, 52, 50, 54), ("insert", 59, 59, 61, 62)],
+    # the sanitizer flag table lives in utils/sanitize_flags.py, shared with murmur3's build
     "native/__init__.py": [('replace', 2, 7, 2, 10), ('replace', 8, 11, 11, 33), ('insert', 16, 16, 38, 39), ('insert', 17, 17, 40, 41),
-                          ('insert', 18, 18, 42, 43), ('replace', 21, 24, 46, 50), ('replace', 25, 31, 51, 56), ('replace', 50, 53, 75, 84),
-                          ('replace', 61, 64, 92, 93), ('insert', 86, 86, 115, 116), ('replace', 177, 180, 207, 208), ('replace', 207, 210, 235, 236),
-                          ('replace', 232, 235, 258, 259), ('replace', 247, 271, 271, 277), ('replace', 273, 277, 279, 291), ('replace', 278, 283, 292, 305),
-                          ('insert', 284, 284, 306, 333), ('replace', 285, 302, 334, 336), ('replace', 305, 310, 339, 344), ('insert', 311, 311, 345, 346),
-                          ('replace', 313, 314, 348, 353), ('replace', 325, 326, 364, 365), ('insert', 327, 327, 366, 377), ('replace', 336, 339, 386, 390),
-                          ('delete', 340, 342, 391, 391), ('replace', 493, 496, 542, 543), ('replace', 521, 524, 568, 569), ('replace', 720, 723, 765, 766),
-                          ('replace', 789, 792, 832, 833)],
+                          ('insert', 18, 18, 42, 43), ('replace', 21, 24, 46, 47), ('replace', 25, 53, 48, 69),
+                          ('replace', 61, 64, 77, 78), ('insert', 86, 86, 100, 101), ('replace', 177, 180, 192, 193), ('replace', 207, 210, 220, 221),
+                          ('replace', 232, 235, 243, 244), ('replace', 247, 271, 256, 262), ('replace', 273, 277, 264, 276), ('replace', 278, 283, 277, 290),
+                          ('insert', 284, 284, 291, 318), ('replace', 285, 302, 319, 321), ('replace', 305, 310, 324, 329), ('insert', 311, 311, 330, 331),
+                          ('replace', 313, 314, 333, 338), ('replace', 325, 326, 349, 350), ('insert', 327, 327, 351, 362), ('replace', 336, 339, 371, 375),
+                          ('delete', 340, 342, 376, 376), ('replace', 493, 496, 527, 528), ('replace', 521, 524, 553, 554), ('replace', 720, 723, 750, 751),
+                          ('replace', 789, 792, 817, 818)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
     "client/ring.py": [("replace", 4, 6, 4, 6), ("replace", 38, 39, 38, 39), ("insert", 139, 139, 139, 156),
                        ("insert", 144, 144, 161, 166), ("replace", 283, 284, 305, 306), ("insert", 305, 305, 327, 330),

@@ -1485,19 +1485,17 @@ class _CountingTorch:
         return getattr(torch, name)
 
 
-def test_forward_through_the_engine_batches_and_equals_the_jax_package(monkeypatch, jax_engine):
-    """Concurrent async Forwards over one native channel land in read
-    bursts whose rows reach the Batcher as one submit_many each: every
-    batch runs one upload, one product and one ps.forward-pull, and
-    each y equals the JAX package's PsService on the same seeded x and W
-    (the JAX server on its own engine) within the f32 tolerance."""
+def _forward_burst(monkeypatch, w, xs):
+    """Concurrent async Forwards of the rows of ``xs`` over one native
+    channel to the port's PsService holding ``w``: they land in read
+    bursts whose rows reach the Batcher as one submit_many each, every
+    batch running one upload, one product and one ps.forward-pull, and
+    each y equals x @ w in float64 within the f32 tolerance.  Returns
+    the ys."""
     from incubator_brpc_tpu_torch.analysis.device_witness import transfer_counts
     from incubator_brpc_tpu_torch.observability.profiling import kernel_snapshot
 
-    d, n = 64, 24
-    rng = np.random.RandomState(5)
-    w = (rng.randn(d, d) / np.sqrt(d)).astype(np.float32)
-    xs = rng.randn(n, d).astype(np.float32)
+    n = len(xs)
     counting = _CountingTorch()
     monkeypatch.setattr(port_ps, "torch", counting)
     bursts = []
@@ -1512,16 +1510,10 @@ def test_forward_through_the_engine_batches_and_equals_the_jax_package(monkeypat
     svc = PsService(device=CPU)
     svc.put_param("w", w)
     srv.add_service(svc)
-    jsrv = JServer(JServerOptions(native_engine=True))
-    jsvc = JPsService()
-    jsvc.put_param("w", w)
-    jsrv.add_service(jsvc)
-    assert srv.start(0) == 0 and jsrv.start(0) == 0
+    assert srv.start(0) == 0
     ch = Channel(ChannelOptions(timeout_ms=10000, connection_type="native"))
-    jch = JChannel(JChannelOptions(timeout_ms=10000, connection_type="native"))
     try:
         assert ch.init(f"127.0.0.1:{srv.port}") == 0
-        assert jch.init(f"127.0.0.1:{jsrv.port}") == 0
         b = srv.batcher("PsService.Forward")
         pulls0 = transfer_counts().get("ps.forward-pull", 0)
         execs0 = kernel_snapshot().get("ps.forward", {}).get("executions", 0)
@@ -1547,22 +1539,58 @@ def test_forward_through_the_engine_batches_and_equals_the_jax_package(monkeypat
         assert transfer_counts()["ps.forward-pull"] - pulls0 == batches
         # at least one read burst carried several rows into one submit_many
         assert bursts and max(bursts) > 1, bursts
+        scale = np.abs(xs) @ np.abs(w)
+        assert np.all(np.abs(ys - xs.astype(np.float64) @ w) <= FWD_RTOL * scale + FWD_ATOL)
+        return ys
+    finally:
+        ch.close()
+        srv.stop()
+
+
+def _forward_inputs():
+    d, n = 64, 24
+    rng = np.random.RandomState(5)
+    w = (rng.randn(d, d) / np.sqrt(d)).astype(np.float32)
+    return w, rng.randn(n, d).astype(np.float32)
+
+
+def test_forward_through_the_engine_batches(monkeypatch):
+    """The port alone (no JAX computation in the process's threads, so
+    the tsan lane runs it): concurrent async Forwards over one native
+    channel are batched through the engine's read bursts, and each y
+    equals x @ W in float64 within the f32 tolerance."""
+    _forward_burst(monkeypatch, *_forward_inputs())
+
+
+def test_forward_through_the_engine_batches_and_equals_the_jax_package(monkeypatch, jax_engine):
+    """Concurrent async Forwards over one native channel land in read
+    bursts whose rows reach the Batcher as one submit_many each: every
+    batch runs one upload, one product and one ps.forward-pull, and
+    each y equals the JAX package's PsService on the same seeded x and W
+    (the JAX server on its own engine) within the f32 tolerance."""
+    w, xs = _forward_inputs()
+    ys = _forward_burst(monkeypatch, w, xs)
+    jsrv = JServer(JServerOptions(native_engine=True))
+    jsvc = JPsService()
+    jsvc.put_param("w", w)
+    jsrv.add_service(jsvc)
+    assert jsrv.start(0) == 0
+    jch = JChannel(JChannelOptions(timeout_ms=10000, connection_type="native"))
+    try:
+        assert jch.init(f"127.0.0.1:{jsrv.port}") == 0
         jys = []
-        for i in range(n):
+        for x in xs:
             c = JController()
             c.timeout_ms = 10000
-            c.request_attachment.append_user_data(xs[i].tobytes())
+            c.request_attachment.append_user_data(x.tobytes())
             j_ps_stub(jch).Forward(c, JEchoRequest(message="w"))
             assert not c.failed(), c.error_text()
             jys.append(np.frombuffer(c.response_attachment.to_bytes(), np.float32))
         jys = np.stack(jys)
         scale = np.abs(xs) @ np.abs(w)
         assert np.all(np.abs(ys - jys) <= FWD_RTOL * scale + FWD_ATOL)
-        assert np.all(np.abs(ys - xs.astype(np.float64) @ w) <= FWD_RTOL * scale + FWD_ATOL)
     finally:
-        ch.close()
         jch.close()
-        srv.stop()
         jsrv.stop()
 
 

@@ -15,7 +15,7 @@ import pytest
 
 from incubator_brpc_tpu_torch import native
 from incubator_brpc_tpu_torch.tools import sanitize as S
-from incubator_brpc_tpu_torch.utils import hashes
+from incubator_brpc_tpu_torch.utils import hashes, sanitize_flags
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PRELOADS = {"asan": "/rt/libasan.so:/rt/libubsan.so", "tsan": "/rt/libtsan.so"}
@@ -176,8 +176,8 @@ def test_launch_cases_catch_a_kernel_that_disagrees(monkeypatch):
 
     staged = T._staged_copy_csum
 
-    def off_by_one_ulp(x, block_rows, stage_rows, out=None):
-        out, acc = staged(x, block_rows, stage_rows, out)
+    def off_by_one_ulp(x, block_rows, stage_rows, out=None, partial=None):
+        out, acc = staged(x, block_rows, stage_rows, out, partial)
         return out, acc.view(torch.int32).add(1).view(acc.dtype)
 
     monkeypatch.setattr(T, "_staged_copy_csum", off_by_one_ulp)
@@ -188,7 +188,72 @@ def test_launch_cases_catch_a_kernel_that_disagrees(monkeypatch):
     assert len(k2) == 13
     assert all(m.startswith(("K2 accumulator", "K2 slot checksum"))
                for m in summary["mismatches"])
-    assert S.main(["--launch-cases"]) == 1
+    assert S.main(["--launch-cases", "--device", "cpu"]) == 1
+
+
+def test_launch_cases_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.launch_cases()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.main(["--launch-cases"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.main(["--launch-cases", "--guarded"])
+
+
+@pytest.mark.parametrize("device,launched,rc", [
+    ("cuda:0", 1, 0), ("cuda:0", 0, 1), ("cpu", 0, 0)])
+def test_launch_cases_fail_on_the_card_when_a_kernel_never_launched(
+        monkeypatch, capsys, device, launched, rc):
+    counts = {"copy_csum_blocks": 3, "copy_csum_staged": 2, "copy_blocks": launched}
+    monkeypatch.setattr(S, "launch_cases", lambda dev, guarded: {
+        "device": device, "cases": 13, "launches": counts, "checks": 195, "overlaps": 0,
+        "mismatches": []})
+    assert S.main(["--launch-cases", "--device", device]) == rc
+
+
+def test_guarded_launch_cases_hand_every_launch_a_poisoned_scratch(monkeypatch):
+    import torch
+
+    from incubator_brpc_tpu_torch.ops import transfer as T
+
+    seen = []
+
+    def recording(real):
+        def call(x, *args):
+            if len(args) == 4:  # the launcher's own calls (x, ..., out, partial)
+                seen.append(args[3])
+            return real(x, *args)
+        return call
+
+    monkeypatch.setattr(T, "_copy_csum", recording(T._copy_csum))
+    monkeypatch.setattr(T, "_staged_copy_csum", recording(T._staged_copy_csum))
+    assert S.launch_cases("cpu", guarded=True)["mismatches"] == []
+    # per case: K1 whole, carry, slot, each chained chunk, K2 and its slot
+    assert len(seen) > 5 * 13
+    for partial in seen:
+        assert partial is not None and partial.dtype == torch.float32
+        assert bool(torch.isnan(partial).all())
+    seen.clear()
+    S.launch_cases("cpu")
+    assert seen and all(partial is None for partial in seen)
+
+
+def test_a_scratch_of_the_wrong_shape_is_refused():
+    import torch
+
+    from incubator_brpc_tpu_torch.ops import transfer as T
+
+    x = torch.zeros((64, 256))
+    assert T._scratch(x, 32, None).shape == (2, 256)
+    good = torch.empty((2, 256))
+    assert T._scratch(x, 32, good) is good
+    for bad in (torch.empty((4, 256)), torch.empty((2, 256), dtype=torch.float16),
+                torch.empty((256, 2)).t()):
+        with pytest.raises(ValueError, match="partial must be"):
+            T._scratch(x, 32, bad)
 
 
 def test_launch_cases_command_line(capsys):
@@ -198,24 +263,42 @@ def test_launch_cases_command_line(capsys):
 
 
 @pytest.mark.parametrize("mode", ["asan", "tsan"])
-def test_murmur3_builds_instrumented_under_a_sanitizer(mode):
-    plain_cmd, plain_target = hashes.murmur3_build("")
-    cmd, target = hashes.murmur3_build(mode)
-    assert cmd[0] == "cc" and cmd[-1].endswith("utils/murmur3.c")
-    assert cmd[cmd.index("-o") + 1] == "{tmp}"
-    flags = cmd[1:cmd.index("-o")]
-    assert flags == [*hashes._CC_FLAGS, *native._SAN_FLAGS[mode]]
+def test_murmur3_builds_instrumented_under_a_sanitizer(monkeypatch, tmp_path, mode):
+    plain_flags, plain_target = hashes.murmur3_build("")
+    flags, target = hashes.murmur3_build(mode)
+    assert flags == [*hashes._CC_FLAGS, *sanitize_flags.SAN_FLAGS[mode]]
+    assert flags[len(hashes._CC_FLAGS):] == native._SAN_FLAGS[mode]  # the engine's
     assert ("-fsanitize=address,undefined" if mode == "asan" else "-fsanitize=thread") in flags
-    assert not [f for f in plain_cmd if f.startswith("-fsanitize")]
+    assert plain_flags == hashes._CC_FLAGS
     assert target.name.startswith(f"libmurmur3.{mode}-") and target != plain_target
     assert plain_target.name.startswith("libmurmur3-")
+    # the compiler is handed exactly those flags, writing a temporary
+    # beside the target (renamed onto it once built)
+    ran = []
+
+    def compiler(cmd, **kw):
+        ran.append(cmd)
+        raise subprocess.CalledProcessError(1, cmd)
+
+    monkeypatch.setattr(sanitize_flags, "SANITIZE", mode)
+    monkeypatch.setattr(hashes, "_BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(hashes.subprocess, "run", compiler)
+    with pytest.raises(subprocess.CalledProcessError):
+        hashes._build_murmur3()
+    _, target = hashes.murmur3_build(mode)
+    (cmd,) = ran
+    assert cmd[0] == "cc" and cmd[-1].endswith("utils/murmur3.c")
+    assert cmd[1:cmd.index("-o")] == flags
+    out = pathlib.Path(cmd[cmd.index("-o") + 1])
+    assert out.parent == target.parent and out.name.startswith(target.stem + ".")
 
 
 def test_murmur3_build_follows_the_engines_mode(monkeypatch):
-    monkeypatch.setattr(native, "SANITIZE", "tsan")
+    monkeypatch.setattr(sanitize_flags, "SANITIZE", "tsan")
     assert hashes.murmur3_build() == hashes.murmur3_build("tsan")
-    monkeypatch.setattr(native, "SANITIZE", "")
+    monkeypatch.setattr(sanitize_flags, "SANITIZE", "")
     assert hashes.murmur3_build() == hashes.murmur3_build("")
+    assert native._SAN_FLAGS is sanitize_flags.SAN_FLAGS
     with pytest.raises(ValueError, match="msan"):
         hashes.murmur3_build("msan")
 
@@ -234,12 +317,14 @@ def test_host_lane_runs_clean(mode):
 def test_guarded_launch_cases_hold_on_the_card():
     """On the card: every kernel bit-equal to its plain version with its
     outputs between guard bands, its scratch poisoned, its arrival
-    counters back at zero and a second stream running the same cases."""
+    counters back at zero and two streams running the same cases at
+    once."""
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     summary = S.launch_cases("cuda:0", guarded=True)
     assert summary["mismatches"] == []
-    assert summary["checks"] == 2 * 15 * 13
+    assert summary["checks"] == 3 * 15 * 13  # the current stream, then two at once
+    assert summary["overlaps"] == 13
     assert all(summary["launches"].values())
