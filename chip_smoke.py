@@ -220,7 +220,23 @@ file.  Phases, each fatal on failure:
              HLS segments, playlist and FLV archive equal to a plain
              segmenter's and writer's; Server.stop() sending GOAWAY with
              4 h2 streams in flight, each finishing with its reply;
-16. witness — the analysis toolchain's runtime witnesses on the card,
+16. bench  — the port's bench (incubator_brpc_tpu_torch/tools/bench.py)
+             on the card: every bench_* function but bench_tcp_echo
+             (fixed-length windows, BENCH_FULL_ONLY) at the small
+             arguments of its CPU guard in tests/test_torch_bench.py
+             (BENCH_SMALL),
+             each result free of error keys, of the -1 of an unresolved
+             measurement and of failed calls, and holding its guard's
+             counts (sharded executions == merges == batches, window
+             crossings, keys moved, prefill once a session, ...); then
+             main()'s device tail at its 64 MB defaults: bench_transmit_op
+             (a chain of K1), the chunk sweep (every pallas row one K2
+             launch a transmit, no fallback; its best mode applied) and
+             the headline echo (48 - 8 echoes, 9 reps, every echo
+             answered).  Prints each bench's time, the 64 MB figures, the
+             host time to issue one transmit of bench_transmit_op's chain
+             beside K1's, and the bench's line of those figures;
+17. witness — the analysis toolchain's runtime witnesses on the card,
              in a child interpreter (this script with --witness-child)
              that arms the lock witness and the transfer guard before
              the port creates a lock: a seeded .item() of a CUDA tensor
@@ -241,7 +257,7 @@ file.  Phases, each fatal on failure:
              armed against disarmed, in ABBA turns; "unresolved" when the
              difference is inside the disarmed turns' spread) and the
              phase's wall time with the card's name and power limit;
-17. times  — each kernel's time at the main path's shapes beside its
+18. times  — each kernel's time at the main path's shapes beside its
              bound, its plain version and its library call: the whole-frame
              transmits (K1 and K2 on the 64 MB frame, K2 on the 32 MiB u8
              stack, with the median and spread of their windows), and
@@ -261,7 +277,7 @@ line is {"ok": true, "device": {...}}.  Without a card, or without the
 package beside this file, it exits non-zero and prints no result.
 
 ``--times ROOT`` runs only the build and the copy+checksum transmit
-times of phase 17 (transmit_ms: K2 on the stack and copy_blocks beside
+times of phase 18 (transmit_ms: K2 on the stack and copy_blocks beside
 out.copy_ included) for the package of the checkout at ROOT,
 and prints them as one JSON line with the card's name and power limit.
 Two commits compare on one card within one call: unpack the other with
@@ -4841,6 +4857,212 @@ def phase_proto(torch, T, smi, ps_summary, dev=None):
     return counts, out
 
 
+
+# [bench]: each bench of incubator_brpc_tpu_torch/tools/bench.py at the
+# small arguments of its CPU guard (tests/test_torch_bench.py; small ones
+# of their own for the DCN, protocol, tail and TCP echo benches, which
+# have none), then the 64 MB transmit op, chunk sweep and echo at their
+# defaults, as main() runs them; a check returns what failed of the
+# guard's structure.  bench_tcp_echo has no small size: its native press
+# windows are fixed at about 34 s and its Python curve at 4000 calls a
+# window (48.6 s on the card in all), so it runs only in the bench's own
+# whole run; [native] drives the same press against the same engine
+BENCH_FULL_ONLY = {"bench_tcp_echo"}
+BENCH_SMALL = [
+    ("bench_rpcz_overhead", dict(seg_calls=30, pairs=2)),
+    ("bench_profiler_overhead", dict(payload=256, seg_calls=40, rows=2, tokens=8, dim=8,
+                                     pairs=2)),
+    ("bench_chaos_overhead", dict(seg_calls=30, pairs=2)),
+    ("bench_ring_disabled_overhead", dict(seg_calls=30, pairs=2)),
+    ("bench_cluster_scrape_overhead", dict(seg_calls=60, pairs=2)),
+    ("bench_device_witness_overhead", dict(rows=4, tokens=16, dim=16, pairs=2)),
+    ("bench_hbm_cache", dict(sizes=(4096,), seg_calls=30, proof_calls=8, cluster_keys=6,
+                             cluster_calls=30, pairs=2, overhead_calls=40)),
+    ("bench_admission_off_overhead", dict(seg_calls=30, pairs=2)),
+    ("bench_overload_storm", dict(replicas=2, bulk_threads=3, interactive_threads=2,
+                                  calls_per_thread=5, bulk_sleep_us=40_000, hedge_calls=10)),
+    ("bench_resharding", dict(n_keys=24, dim=16, load_threads=2, phase_calls=20)),
+    ("bench_resharding_bulk_move", dict(n_keys=16, value_bytes=512)),
+    ("bench_replicated_ps", dict(n_keys=12, rf1_calls=40, rf3_calls=40, hedged_calls=24,
+                                 slow_delay_us=50_000)),
+    ("bench_batched_device_op", dict(parallelism=(6,), batch_sizes=(6,), duration_s=0.5,
+                                     dim=16)),
+    ("bench_sharded_ps", dict(shards=(1, 4), parallelism=(6,), duration_s=0.4, dim=256)),
+    ("bench_shard_window", dict(n_keys=24, shards=2, value_bytes=64, reps=1)),
+    ("bench_batching_off_overhead", dict(seg_calls=30, pairs=2)),
+    ("bench_streaming_generate", dict(parallelism=(1, 4), tokens=24, dim=16,
+                                      step_delay_s=0.005)),
+    ("bench_disagg_serving", dict(parallelism=(1, 4), tokens=12, dim=12, n_layers=2,
+                                  migrate_tokens=24, migrate_sessions=2,
+                                  migrate_step_delay_s=0.02)),
+    ("bench_dcn_bulk", dict(mb=8, reps=2)),
+    ("bench_python_protocols", dict(duration_s=0.3, threads=2)),
+    ("bench_tail_cdf", dict(qps=2000, duration_s=1.5)),
+    ("bench_ici_pipeline_curve", dict(mb=2, hi=3, lo=1, reps=1)),
+    ("bench_ici_rpc", dict(mb=1, hi=4, lo=2, reps=2)),
+]
+
+
+def _sharded_counts(r):
+    pts = {p["shards"]: p for p in r["sharded_ps"]["points"]}
+    sh, ms = pts[4], r["sharded_ps"]["max_servable"]
+    return [] if (sh["fused_executions"] == sh["collective_merges"] == sh["batches"] >= 1
+                  and not pts[1]["collective_merges"] and ms["ratio_vs_single_chip"] >= 2
+                  and all(e["fits_budget"] and e["served"] for e in ms["sweep"])) else [
+        "sharded executions == merges == batches, the servable sweep"]
+
+
+def _pipeline_counts(r):
+    bad = []
+    for p in r["ici_pipeline_curve"]:
+        if p["mode"] == "pallas" and p["pallas_dispatches"] + p["pallas_fallbacks"] not in (
+                0, p["pallas_transmits"]):
+            bad.append(f"pallas dispatches {p}")
+    return bad
+
+
+BENCH_CHECKS = {
+    "bench_hbm_cache": lambda r: [] if (
+        r["hbm_cache"]["hit_path_spill_pulls"] == 0 and r["hbm_cache"]["spill_manifested_pulls"] > 0
+        and r["hbm_cache"]["hit_path_violations"] == 0
+        and r["hbm_cache"]["cluster"]["spill_hits"] == 30
+        and r["hbm_cache"]["cluster"]["locality_fraction"] >= 0.9) else ["cache residency/locality"],
+    "bench_device_witness_overhead": lambda r: [] if (
+        r["device_witness_overhead"]["armed_manifested_pulls"] > 0
+        and r["device_witness_overhead"]["armed_violations"] == 0) else ["witness pulls/violations"],
+    "bench_resharding": lambda r: [] if (
+        r["resharding"]["migration"]["completed"] and r["resharding"]["migration"]["epoch"] == 1
+        and r["resharding"]["migration"]["keys_moved"]
+        == r["resharding"]["migration"]["planner_scheme_delta"]
+        and r["resharding"]["migration"]["checksum_failures"] == 0) else ["reshard step log"],
+    "bench_resharding_bulk_move": lambda r: [] if (
+        0 < r["resharding_bulk_move"]["bulk"]["collective_steps"]
+        < r["resharding_bulk_move"]["bulk"]["keys_moved"]
+        == r["resharding_bulk_move"]["per_key"]["keys_moved"]
+        and r["resharding_bulk_move"]["per_key"]["collective_steps"] == 0) else ["bulk steps"],
+    "bench_replicated_ps": lambda r: [] if (
+        r["replicated_ps"]["quorum_writes"] >= r["replicated_ps"]["puts"] == 22
+        and r["replicated_ps"]["steady_leader_changes"] == 0
+        and r["replicated_ps"]["hedged_tail"]["hedged_reads"] > 0) else ["quorum/hedge"],
+    "bench_batched_device_op": lambda r: [] if (
+        {p["config"]: p for p in r["batched_device_op"]["points"]}["on6"]["observed_max_batch"]
+        >= 2) else ["batcher never coalesced"],
+    "bench_sharded_ps": _sharded_counts,
+    "bench_shard_window": lambda r: [] if (
+        r["shard_window_ps"]["windowed_crossings"] == 2 and r["shard_window_ps"]["windows"] == 1
+        and r["shard_window_ps"]["fallback_calls"] == 0
+        and r["shard_window_cache"]["fallback_calls"] == 0
+        and 0 < r["shard_window_cache"]["get_many_crossings"] <= 2) else ["window crossings"],
+    "bench_streaming_generate": lambda r: [] if (
+        r["streaming_generate"]["unary_rows"] == 0
+        and r["streaming_generate"]["streamed_rows"] == 6
+        and all(p["tokens"] == 24 * p["parallelism"] == 24 * p["progressive_streams"]
+                for p in r["streaming_generate"]["points"])) else ["streamed rows/tokens"],
+    "bench_disagg_serving": lambda r: [] if (
+        r["disagg_serving"]["migration"]["prefill_executions_max"] == 1
+        and r["disagg_serving"]["migration"]["completed"] == 2
+        and r["disagg_serving"]["rpc_front"] == {
+            "frames": 12, "streamed_rows": 1, "unary_fallback_rows": 0}) else ["prefill/stream"],
+    "bench_overload_storm": lambda r: [] if (
+        r["overload_storm"]["hedging"]["hedged"]["completed"]
+        == r["overload_storm"]["hedging"]["no_hedge"]["completed"] == 10) else ["hedged calls"],
+    "bench_ici_pipeline_curve": _pipeline_counts,
+    "bench_ici_rpc": lambda r: [] if r["ici_rpc_ok"] == 2 + 2 * (4 + 2) else ["echoes lost"],
+}
+
+
+def bench_faults(value, path=""):
+    """What a bench's result must not hold: an error key, the -1 of an
+    unresolved measurement, a failed call count above 0, or a negative
+    figure (overhead percentages are signed by definition)."""
+    bad = []
+    if isinstance(value, dict):
+        for k, v in value.items():
+            p = f"{path}.{k}" if path else str(k)
+            if k == "error" or str(k).endswith("_error"):
+                bad.append(f"{p} = {v!r}")
+            elif (k == "failed" or str(k).endswith("_failed")) and v:
+                bad.append(f"{p} = {v}")
+            bad += bench_faults(v, p)
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            bad += bench_faults(v, f"{path}[{i}]")
+    elif isinstance(value, (int, float)) and not isinstance(value, bool) and value < 0 \
+            and "overhead_pct" not in path:
+        bad.append(f"{path} = {value}")
+    return bad
+
+
+def phase_bench(torch, T):
+    """[bench]: the port's bench on the card.  Every bench_* function at
+    its CPU guard's small arguments (each result free of error keys, -1
+    and failed calls, and holding its guard's counts), then main()'s
+    device tail at its 64 MB defaults: bench_transmit_op, the chunk sweep
+    (its best mode applied, as main() does) and the headline echo, with
+    the host time to issue one K1 transmit beside K1's.  Returns the
+    path's launch counts and the 64 MB figures."""
+    from incubator_brpc_tpu_torch.ops.transfer import device_copy_with_checksum
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+    from incubator_brpc_tpu_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    fabric = get_fabric()
+    saved = (fabric.chunk_mode, fabric.chunk_bytes)
+    T.reset_launch_counts()
+    check({n for n in dir(bench) if n.startswith("bench_")} == {n for n, _ in BENCH_SMALL}
+          | {"bench_transmit_op"} | BENCH_FULL_ONLY,
+          "a bench of tools/bench.py is missing from BENCH_SMALL")
+    try:
+        for name, kw in BENCH_SMALL:
+            t0 = time.perf_counter()
+            r = getattr(bench, name)(**kw)
+            secs = time.perf_counter() - t0
+            faults = bench_faults(r) + BENCH_CHECKS.get(name, lambda r: [])(r)
+            check(not faults, f"[bench] {name}: {faults[:8]}")
+            print(f"[bench] {name:30} ok in {secs:.2f} s")
+            fabric.chunk_mode, fabric.chunk_bytes = saved  # the sweep applies its best
+        t0 = time.perf_counter()
+        full = {}
+        full.update(bench.bench_transmit_op())
+        full.update(bench.bench_ici_pipeline_curve())
+        full.update(bench.bench_ici_rpc())
+        secs = time.perf_counter() - t0
+    finally:
+        fabric.chunk_mode, fabric.chunk_bytes = saved
+    faults = bench_faults(full)
+    check(not faults, f"[bench] the 64 MB device tail: {faults[:8]}")
+    check(full["pallas_transmit_64mb_gbps"] and "ici_64mb_echo_gbps" in full
+          and all(p["gbps"] for p in full["ici_pipeline_curve"]),
+          f"[bench] a 64 MB figure did not resolve: {full}")
+    for p in full["ici_pipeline_curve"]:
+        if p["mode"] == "pallas":  # a 64 MB frame takes the staged lane whole
+            check(p["pallas_dispatches"] == p["pallas_transmits"] and not p["pallas_fallbacks"],
+                  f"[bench] pallas sweep row {p}")
+    check(full["ici_rpc_ok"] == 2 + 9 * (48 + 8), f"[bench] echoes lost: {full['ici_rpc_ok']}")
+    counts = dict(T.launches)
+    # the host's time to issue one transmit of the chain bench_transmit_op
+    # runs (K1, the fold, the scalar add), no sync inside, beside K1's
+    x = torch.ones(MAIN_SHAPE, dtype=torch.float32, device="cuda")
+    s = torch.zeros((), dtype=torch.float32, device="cuda")
+    y, n_issue = x, 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_issue):
+        y, csum = device_copy_with_checksum(y)
+        s = s + csum
+    issue_us = (time.perf_counter() - t0) / n_issue * 1e6
+    torch.cuda.synchronize()
+    T.reset_launch_counts()  # the issue timing is not a path's launch
+    print(f"[bench] 64 MB: transmit op {full['pallas_transmit_64mb_us']} us a transmit "
+          f"({full['pallas_transmit_64mb_gbps']} GB/s), host issue {issue_us:.1f} us a "
+          f"transmit; echo median {full.get('ici_echo_e2e_us_per_echo_median')} us "
+          f"({full.get('ici_64mb_echo_gbps')} GB/s) under the sweep's best "
+          f"{full['ici_pipeline_best']['mode']}/{full['ici_pipeline_best']['chunk_mb']} MB; "
+          f"{secs:.1f} s")
+    print(json.dumps({"bench": full}))
+    print(f"[bench] launches {counts}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, {**full, "host_issue_us": issue_us}
+
 WITNESS_SLICE = 10  # ici://slice10/chip{0..3}: the child's servers
 WITNESS_ECHOES = 4  # per chunk mode, each checked
 WITNESS_TIMED = 24  # echoes per overhead turn
@@ -5999,21 +6221,24 @@ def main() -> int:
     check(not any(native_counts.values()), f"the native path launched {native_counts}")
     proto_counts, _ = phase_proto(torch, T, smi, ps_summary)
     check(not any(proto_counts.values()), f"the protocols' path launched {proto_counts}")
+    bench_counts, _ = phase_bench(torch, T)
     witness = phase_witness(torch, smi)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
-             cluster_counts, http_counts, mesh_counts, native_counts, proto_counts]
+             cluster_counts, http_counts, mesh_counts, native_counts, proto_counts,
+             bench_counts]
     totals = {k: sum(c[k] for c in paths) for k in T.launches}
     print(f"[paths] launches: echo {echo_counts}; ps {ps_counts}; shard {shard_counts}; "
           f"cache {cache_counts}; stream {stream_counts}; dcn {dcn_counts} (child "
           f"{dcn_child_counts}); cluster {cluster_counts}; serve {serve_counts}; "
           f"http {http_counts}; mesh {mesh_counts}; native {native_counts}; proto "
-          f"{proto_counts}; examples (children) {example_counts}; witness "
+          f"{proto_counts}; bench {bench_counts}; examples (children) {example_counts}; witness "
           f"(child, its whole run) "
           f"{witness['launches']}")
     for name, c in [("shard", shard_counts), ("dcn", dcn_counts), ("cluster", cluster_counts),
-                    ("http", http_counts), ("mesh", mesh_counts)]:
+                    ("http", http_counts), ("mesh", mesh_counts), ("bench", bench_counts)]:
         check(c["copy_csum_blocks"] > 0, f"K1 never launched on the {name} path")
-    check(cluster_counts["copy_csum_staged"] > 0, "K2 never launched on the cluster path")
+    for name, c in [("cluster", cluster_counts), ("bench", bench_counts)]:
+        check(c["copy_csum_staged"] > 0, f"K2 never launched on the {name} path")
     for k, v in totals.items():
         if k in OFF_PATH:  # no caller in either package: never on a path
             check(v == 0, f"kernel {k} launched {v} times on a main path")

@@ -518,10 +518,13 @@ def test_checked_in_manifests_all_justified():
     for e in allow.entries:
         assert e["why"].strip() and "TODO" not in e["why"], e
     assert todo_review_findings(allow) == []
-    # the six keys the port opens, the profiler's stop, and chip_smoke's
+    # the six keys the port opens, the profiler's stop, the bench's
+    # timed empty scope (tools/bench.py, inside the package scan where
+    # the JAX package's bench.py is external), and chip_smoke's
     assert load_device_manifest().internal_keys() == {
         "decode.token-sums", "cache.host-spill", "dcn.wire", "ps.forward-pull",
-        "ps.client-merge", "iobuf.host-view", "profiler.capture-sync"}
+        "ps.client-merge", "iobuf.host-view", "profiler.capture-sync",
+        "bench.device-witness"}
     assert load_device_manifest().keys() - load_device_manifest().internal_keys() == {
         "smoke.witness"}
 
