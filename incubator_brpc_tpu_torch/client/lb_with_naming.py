@@ -36,6 +36,11 @@ from incubator_brpc_tpu_torch.transport.socket import Socket
 from incubator_brpc_tpu_torch.transport.socket_map import acquire_socket
 from incubator_brpc_tpu_torch.utils.logging import log_error
 
+# a naming service's first list arrives after one lookup (a remote one's
+# bounded by its HTTP timeout, a failure delivers an empty list); the bound
+# only guards a service that never answers
+_FIRST_BATCH_WAIT_S = 5.0
+
 
 class _NodeState:
     __slots__ = ("breaker", "health_task", "healthy")
@@ -70,6 +75,9 @@ class LoadBalancerWithNaming(NamingServiceWatcher):
             log_error("unknown naming service url %r", url)
             return errors.EREQUEST
         self._ns_thread.add_watcher(self)
+        # a first call must find the servers the URL names: the naming
+        # thread may not have run yet
+        self._ns_thread.wait_for_first_batch(_FIRST_BATCH_WAIT_S)
         return 0
 
     # ---- NS watcher ---------------------------------------------------------

@@ -82,6 +82,12 @@ class PeriodicNamingService(NamingService):
                     watcher.on_servers_changed(nodes)
             except Exception as e:  # noqa: BLE001
                 log_error("naming service %s failed: %r", url, e)
+                if last is None:
+                    # the first batch even on failure (reference
+                    # periodic_naming_service.cpp): a channel waiting for
+                    # it starts and fails its calls instead of hanging
+                    last = []
+                    watcher.on_servers_changed(last)
             stop_event.wait(self.interval_s)
 
 
@@ -171,6 +177,7 @@ class NamingServiceThread:
         self._last_nodes: Optional[List[ServerNode]] = None
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        self._first_batch = threading.Event()
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"tpubrpc-ns-{ns.name}"
         )
@@ -189,6 +196,7 @@ class NamingServiceThread:
                     w.on_servers_changed(nodes)
                 except Exception as e:  # noqa: BLE001
                     log_error("ns watcher raised: %r", e)
+            self.owner._first_batch.set()
 
     def _run(self):
         try:
@@ -205,6 +213,11 @@ class NamingServiceThread:
             nodes = self._last_nodes
         if nodes is not None:
             watcher.on_servers_changed(nodes)
+
+    def wait_for_first_batch(self, timeout_s: float) -> bool:
+        """Block until the naming service delivered its first server list
+        (reference NamingServiceThread::WaitForFirstBatchOfServers)."""
+        return self._first_batch.wait(timeout_s)
 
     def remove_watcher(self, watcher: NamingServiceWatcher):
         with self._lock:

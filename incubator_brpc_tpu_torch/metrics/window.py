@@ -109,6 +109,10 @@ class Window(Variable):
             vals = list(self._resets)
             if not vals:
                 return self._var.get_value()
+            # the second under way counts too: what arrived since the last
+            # tick sits in the reducer until the next reset takes it
+            if Reducer.get_value(self._var) != self._var._identity:
+                vals.append(self._var.get_value())
             return max(vals) if isinstance(self._var, Maxer) else min(vals)
         w = self._sampler.window()
         if w is None:

@@ -1,0 +1,3 @@
+from torch_carry import carry
+
+carry(globals(), "test_advice_regressions")

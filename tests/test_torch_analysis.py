@@ -816,12 +816,18 @@ def test_retrace_witness_flags_bound_violation():
     for n in (1, 2):
         ok(torch.zeros((n, 4)))
     bad = FusedKernel(lambda x: x * 2, label="torch.analysis.bad", batch_buckets=(1, 2))
-    for n in (1, 2, 3):
-        bad(torch.zeros((n, 4)))
-    con = [c for c in device_witness.retrace_contradictions()
-           if c["kernel"].startswith("torch.analysis.")]
-    assert len(con) == 1 and con[0]["kernel"] == "torch.analysis.bad", con
-    assert con[0]["count"] == 3 and con[0]["bound"] == 2
+    try:
+        for n in (1, 2, 3):
+            bad(torch.zeros((n, 4)))
+        con = [c for c in device_witness.retrace_contradictions()
+               if c["kernel"].startswith("torch.analysis.")]
+        assert len(con) == 1 and con[0]["kernel"] == "torch.analysis.bad", con
+        assert con[0]["count"] == 3 and con[0]["bound"] == 2
+    finally:
+        # the contradiction is seeded: an armed session's cross-check
+        # must not count it
+        with device_witness._state_lock:
+            device_witness._kernels.pop("torch.analysis.bad", None)
 
 
 # ---------------------------------------------------------------------------

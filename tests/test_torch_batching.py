@@ -387,11 +387,17 @@ def test_forward_kernel_traces_once_per_bucket_and_reports_families():
     assert k.trace_count() == 3
     assert not [c for c in device_witness.retrace_contradictions()
                 if c["kernel"] == "test.fwd"]
-    for b in (8, 16):  # two shapes past the bound: a contradiction
-        k(w, torch.ones((b, 8)))
-    bad = [c for c in device_witness.retrace_contradictions()
-           if c["kernel"] == "test.fwd"]
-    assert len(bad) == 1 and bad[0]["count"] == 5 and bad[0]["bound"] == 3
+    try:
+        for b in (8, 16):  # two shapes past the bound: a contradiction
+            k(w, torch.ones((b, 8)))
+        bad = [c for c in device_witness.retrace_contradictions()
+               if c["kernel"] == "test.fwd"]
+        assert len(bad) == 1 and bad[0]["count"] == 5 and bad[0]["bound"] == 3
+    finally:
+        # the contradiction is seeded: an armed session's cross-check
+        # must not count it
+        with device_witness._state_lock:
+            device_witness._kernels.pop("test.fwd", None)
 
 
 # ---------------------------------------------------------------------------

@@ -649,6 +649,10 @@ COPIED = {
 # client/ring.py: a reply's attachment leaves with its message as a
 # RingReply instead of being wiped with the pooled controller (and the
 # comments at JAX :5-6, :39, :284, :308 reworded).
+# metrics/window.py: a windowed Maxer/Miner counts the value recorded since
+# the sampler's last tick; client/naming_service.py: a naming thread
+# signals its first server list, and a periodic service that fails its first
+# lookup delivers an empty one (tests/test_torch_repairs.py).
 DIVERGED = {
     "analysis/invariants.py": [("replace", 16, 17, 16, 17), ("replace", 83, 84, 83, 87)],
     "analysis/witness.py": [("replace", 20, 22, 20, 22), ("replace", 44, 45, 44, 47)],
@@ -667,6 +671,9 @@ DIVERGED = {
                           ('delete', 340, 342, 376, 376), ('replace', 493, 496, 527, 528), ('replace', 521, 524, 553, 554), ('replace', 720, 723, 750, 751),
                           ('replace', 789, 792, 817, 818)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
+    "metrics/window.py": [("insert", 111, 111, 111, 115)],
+    "client/naming_service.py": [("insert", 84, 84, 84, 90), ("insert", 173, 173, 179, 180),
+                                 ("insert", 191, 191, 198, 199), ("insert", 207, 207, 215, 220)],
     "client/ring.py": [("replace", 4, 6, 4, 6), ("replace", 38, 39, 38, 39), ("insert", 139, 139, 139, 156),
                        ("insert", 144, 144, 161, 166), ("replace", 283, 284, 305, 306), ("insert", 305, 305, 327, 330),
                        ("replace", 307, 308, 332, 333), ("replace", 527, 528, 552, 555), ("replace", 539, 540, 566, 569),
