@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times ROOT
+    python3 chip_smoke.py --scrape ROOT [--history-keys K]
     python3 chip_smoke.py --tune
 
 Needs one CUDA card, ``nvcc`` and the repository checkout around this
@@ -159,7 +160,12 @@ file.  Phases, each fatal on failure:
              up to the allocator's rounding after ?rebase=1; the pages on
              internal_port only; rpc_dump of PS Forward calls (device x
              over ici://, one host-view pull per sample) replayed by
-             rpc_replay to a fresh server, each y held to float64;
+             rpc_replay to a fresh server, each y held to float64; last,
+             one /metrics page of a fresh server after every phase
+             before it: its time, the rpc_phase_latency_us keys it
+             prints and the _flush_batches calls it makes (one for each
+             phase recorder, or the phase fails), beside the card's name
+             and power limit;
 13. mesh   — the single-controller mesh (parallel/mesh.py) of 4 virtual
              chips on the card: each collective lowering over a (4 *
              2048, 2048) f32 tensor held to a plain version (gather,
@@ -235,7 +241,9 @@ file.  Phases, each fatal on failure:
              the headline echo (48 - 8 echoes, 9 reps, every echo
              answered).  Prints each bench's time, the 64 MB figures, the
              host time to issue one transmit of bench_transmit_op's chain
-             beside K1's, and the bench's line of those figures;
+             beside K1's, and the bench's line of those figures; the
+             cluster_scrape_overhead result also stands on a line of its
+             own beside the card's name and power limit;
 17. witness — the analysis toolchain's runtime witnesses on the card,
              in a child interpreter (this script with --witness-child)
              that arms the lock witness and the transfer guard before
@@ -284,6 +292,17 @@ Two commits compare on one card within one call: unpack the other with
 ``git archive`` under a directory that .gitignore lists and run the
 two roots in turns (A, B, B, A).
 
+``--scrape ROOT`` runs bench_cluster_scrape_overhead of the checkout at
+ROOT at its defaults (its definition untouched), after K (default 0)
+(method, phase) recorders of history have been fed, with the scrape's
+handlers timed from outside: per scrape round, the wall and thread CPU
+time of /cluster/export and /cluster/metrics, inside the latter the
+export state, the merge and the render, the _flush_batches calls, the
+round's time outside the handlers, the same round on an idle server,
+and the CPU share the scrape took of the ON segments.  One JSON line
+with the card's name and power limit; no kernel is built.  Compare two
+checkouts in turns (A, B, B, A) in one call, as for ``--times``.
+
 ``--tune`` builds transfer.cu once for each of TUNE_VARIANTS (the bulk-
 copy rings' stages, stage bytes, CTAs an SM, store lags and L2 policies;
 one nvcc each, in parallel), holds each variant's K2 and copy_blocks
@@ -299,6 +318,7 @@ import argparse
 import ctypes
 import faulthandler
 import gc
+import inspect
 import itertools
 import json
 import pathlib
@@ -3303,9 +3323,10 @@ def http_rpc_dump(torch, dev, tmp):
         dst.stop()
 
 
-def phase_http(torch, T):
+def phase_http(torch, T, smi):
     """The HTTP front on the card: SSE token streaming, the builtin
-    pages with the device profiler, internal_port, rpc_dump and replay.
+    pages with the device profiler, internal_port, rpc_dump and replay,
+    then one /metrics page with the process's history.
     Returns (launch counts of the path, trace kernel times)."""
     import tempfile
 
@@ -3318,8 +3339,74 @@ def phase_http(torch, T):
     http_internal_port()
     with tempfile.TemporaryDirectory(prefix="smoke-dump-") as tmp:
         http_rpc_dump(torch, dev, pathlib.Path(tmp))
+    http_metrics_page(smi)
     print(f"[http] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
     return counts, kernels_seen
+
+
+class FlushCounter:
+    """Counts LatencyRecorder._flush_batches calls per recorder while
+    installed, from every thread but the 1 Hz sampler's."""
+
+    def __init__(self):
+        from incubator_brpc_tpu_torch.metrics import window
+        from incubator_brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder
+
+        self.cls, self.orig = LatencyRecorder, LatencyRecorder._flush_batches
+        self.sampler = window._sampler_thread
+        self.calls, self.lock = {}, threading.Lock()
+
+    def __enter__(self):
+        orig, calls, lock, sampler = self.orig, self.calls, self.lock, self.sampler
+
+        def counted(rec):
+            if threading.current_thread() is not sampler._thread:
+                with lock:
+                    calls[id(rec)] = calls.get(id(rec), 0) + 1
+            return orig(rec)
+
+        self.cls._flush_batches = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._flush_batches = self.orig
+
+
+def http_metrics_page(smi, pages=5):
+    """One /metrics page of a fresh server after every phase before this
+    one ran in the process: the first page's time and the median of the
+    next, the rpc_phase_latency_us keys printed, and the _flush_batches
+    calls a page makes, over all recorders and over the phase recorders
+    (one each)."""
+    from incubator_brpc_tpu_torch.observability import latency_breakdown as lb
+    from incubator_brpc_tpu_torch.server.server import Server
+
+    srv = Server()
+    check(srv.start(0) == 0, "the /metrics server failed to start")
+    try:
+        times, phase_calls, all_calls = [], [], []
+        for _ in range(pages):
+            with lb._lock:  # a recorder made during the page is not counted
+                phase_ids = {id(r) for r in lb._recorders.values()}
+            with FlushCounter() as fc:
+                t0 = time.perf_counter()
+                status, body = http_get(srv.port, "/metrics")
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"/metrics answered {status}")
+            folds = [fc.calls.get(i, 0) for i in phase_ids]
+            check(set(folds) <= {1}, f"/metrics folded a phase recorder {max(folds)} times")
+            phase_calls.append(sum(folds))
+            all_calls.append(sum(fc.calls.values()))
+        check_prometheus(body)
+        keys = len({ln.rsplit(",stat=", 1)[0] for ln in body.splitlines()
+                    if ln.startswith("rpc_phase_latency_us{")})
+        print(f"[http] /metrics after the phases: first page {times[0]:.3f} ms, median of the "
+              f"next {pages - 1} {statistics.median(times[1:]):.3f} ms; {keys} "
+              f"rpc_phase_latency_us keys; {phase_calls[-1]} _flush_batches calls on the "
+              f"{len(phase_ids)} phase recorders a page ({all_calls[-1]} on all recorders); "
+              f"card: {smi}")
+    finally:
+        srv.stop()
 
 
 def same_bytes(torch, a, b) -> bool:
@@ -4993,7 +5080,7 @@ def bench_faults(value, path=""):
     return bad
 
 
-def phase_bench(torch, T):
+def phase_bench(torch, T, smi):
     """[bench]: the port's bench on the card.  Every bench_* function at
     its CPU guard's small arguments (each result free of error keys, -1
     and failed calls, and holding its guard's counts), then main()'s
@@ -5020,6 +5107,9 @@ def phase_bench(torch, T):
             faults = bench_faults(r) + BENCH_CHECKS.get(name, lambda r: [])(r)
             check(not faults, f"[bench] {name}: {faults[:8]}")
             print(f"[bench] {name:30} ok in {secs:.2f} s")
+            if name == "bench_cluster_scrape_overhead":
+                print(f"[bench] cluster_scrape_overhead {json.dumps(r['cluster_scrape_overhead'])} "
+                      f"at {kw}; card: {smi}")
             fabric.chunk_mode, fabric.chunk_bytes = saved  # the sweep applies its best
         t0 = time.perf_counter()
         full = {}
@@ -5915,6 +6005,152 @@ def times_main(root: str) -> int:
     return 0
 
 
+SCRAPE_PHASES = ("parse", "queue", "callback", "device", "write", "send",
+                 "total_server", "total_client")
+
+
+class Spans:
+    """Wall and thread-CPU seconds of each call of wrapped functions,
+    by name, while the scrape runs."""
+
+    def __init__(self):
+        self.rows, self.lock = {}, threading.Lock()
+
+    def wrap(self, mod, attr, name):
+        fn = getattr(mod, attr)
+
+        def timed(*a, **kw):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                row = (time.perf_counter() - w0, time.thread_time() - c0)
+                with self.lock:
+                    self.rows.setdefault(name, []).append(row)
+
+        setattr(mod, attr, timed)
+
+    def take(self):
+        with self.lock:
+            rows, self.rows = self.rows, {}
+        return rows
+
+
+def scrape_round(rows, rounds):
+    """Per scrape round: each span's wall and CPU ms, summed over its calls."""
+    out = {}
+    for name, calls in sorted(rows.items()):
+        out[name] = {"calls": round(len(calls) / rounds, 2),
+                     "wall_ms": sum(w for w, _ in calls) / rounds * 1e3,
+                     "cpu_ms": sum(c for _, c in calls) / rounds * 1e3}
+    return out
+
+
+def scrape_main(root: str, history_keys: int) -> int:
+    """``--scrape ROOT``: bench_cluster_scrape_overhead of the package
+    under ROOT at its defaults, traced from outside the bench."""
+    path = pathlib.Path(root).resolve()
+    check((path / "incubator_brpc_tpu_torch").is_dir(),
+          f"no incubator_brpc_tpu_torch under {path}")
+    sys.path.insert(0, str(path))
+    import random
+
+    from incubator_brpc_tpu_torch import builtin
+    from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+    from incubator_brpc_tpu_torch.client.controller import Controller
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.observability import cluster
+    from incubator_brpc_tpu_torch.observability import latency_breakdown as lb
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+    from incubator_brpc_tpu_torch.server.server import Server, ServerOptions
+    from incubator_brpc_tpu_torch.tools import bench, rpc_view
+
+    check(pathlib.Path(bench.__file__).resolve().is_relative_to(path),
+          f"imported {bench.__file__}, not the package under {path}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    rng = random.Random(SEED)
+    for i in range(history_keys):  # a process that has served many methods
+        rec = lb.recorder(f"History.m{i // len(SCRAPE_PHASES)}",
+                          SCRAPE_PHASES[i % len(SCRAPE_PHASES)])
+        for _ in range(64):
+            rec.update_batched(rng.randint(1, 20000))
+    spans = Spans()
+    spans.wrap(builtin, "cluster_export_page", "export_page")
+    spans.wrap(builtin, "cluster_metrics_page", "metrics_page")
+    spans.wrap(builtin, "_cluster_export_payload", "export_state")
+    spans.wrap(cluster, "merge_exports", "merge")
+    spans.wrap(cluster, "render_merged_metrics", "render")
+    spans.wrap(rpc_view, "fetch_page", "fetch")
+
+    # an idle server's scrape round, before the bench: the same two pages
+    srv = Server(ServerOptions(usercode_in_dispatcher=True))
+    srv.add_service(EchoService(attach_echo=False))
+    check(srv.start(0) == 0, "the idle scrape's server failed to start")
+    ch = Channel(ChannelOptions(timeout_ms=10000))
+    ch.init(f"127.0.0.1:{srv.port}")
+    ep = f"127.0.0.1:{srv.port}"
+    try:
+        for _ in range(200):
+            echo_stub(ch).Echo(Controller(), EchoRequest(message="x" * 1024))
+        idle_rounds = 50
+        spans.take()
+        with FlushCounter() as fc:
+            t0 = time.perf_counter()
+            for _ in range(idle_rounds):
+                rpc_view.fetch_page(ep, "cluster/export", timeout=2.0)
+                rpc_view.fetch_page(ep, f"cluster/metrics?replicas={ep}", timeout=2.0)
+            idle_ms = (time.perf_counter() - t0) / idle_rounds * 1e3
+        idle = scrape_round(spans.take(), idle_rounds)
+        idle_flushes = sum(fc.calls.values()) / idle_rounds
+    finally:
+        ch.close()
+        srv.stop()
+
+    spans.take()
+    cpu0 = time.process_time()
+    t0 = time.perf_counter()
+    with FlushCounter() as fc:
+        r = bench.bench_cluster_scrape_overhead()["cluster_scrape_overhead"]
+    secs, cpu = time.perf_counter() - t0, time.process_time() - cpu0
+    rows = spans.take()
+    defaults = inspect.signature(bench.bench_cluster_scrape_overhead).parameters
+    on_calls = defaults["pairs"].default * defaults["seg_calls"].default
+    rounds = max(1, r["scrape_rounds"])
+    loaded = scrape_round(rows, rounds)
+    handlers = sum(loaded.get(k, {}).get("wall_ms", 0) for k in ("export_page", "metrics_page"))
+    round_ms = loaded.get("fetch", {}).get("wall_ms", 0.0)
+    scrape_cpu_s = sum(c for k in ("export_page", "metrics_page", "fetch")
+                       for _, c in rows.get(k, []))
+    out = {
+        "root": str(path), "card": smi, "history_keys": history_keys,
+        "phase_recorders": len(lb._recorders),
+        "overhead_pct": r["overhead_pct"], "scrape_rounds": r["scrape_rounds"],
+        "echo_1kb_qps_scrape_on": r["echo_1kb_qps_scrape_on"],
+        "echo_1kb_qps_scrape_off": r["echo_1kb_qps_scrape_off"],
+        "overhead_pct_segments": r["overhead_pct_segments"],
+        "bench_s": secs, "process_cpu_s": cpu,
+        "round_ms": round_ms,
+        "round": loaded,
+        "outside_handlers_ms": round_ms - handlers,
+        "handlers_wait_ms": sum(loaded.get(k, {}).get("wall_ms", 0)
+                                - loaded.get(k, {}).get("cpu_ms", 0)
+                                for k in ("export_page", "metrics_page")),
+        "flushes_per_round": sum(fc.calls.values()) / rounds,
+        "scrape_cpu_s": scrape_cpu_s,
+        # the ON segments' length from the bench's own defaults and median qps
+        "scrape_cpu_share_of_on": scrape_cpu_s / (
+            on_calls / r["echo_1kb_qps_scrape_on"]),
+        "idle_round_ms": idle_ms, "idle_round": idle, "idle_flushes_per_round": idle_flushes,
+    }
+    print(f"[scrape] {path.name}: overhead {r['overhead_pct']}% over {r['scrape_rounds']} "
+          f"rounds; a round {round_ms:.3f} ms loaded, {idle_ms:.3f} ms idle; card: {smi}")
+    print(json.dumps({"scrape": out}))
+    return 0
+
+
 # --tune: the bulk-copy rings' constants tried on the card.  A variant is
 # transfer.cu with the named constants replaced (ops/transfer.py's
 # mirrors of STAGE_BYTES and of both CTAs-an-SM set to match, for the
@@ -6174,12 +6410,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--times", metavar="ROOT",
                     help="only the transmit times, for the package of the checkout at ROOT")
+    ap.add_argument("--scrape", metavar="ROOT",
+                    help="only bench_cluster_scrape_overhead, traced, for the checkout at ROOT")
+    ap.add_argument("--history-keys", type=int, default=0,
+                    help="with --scrape: phase recorders fed before the bench")
     ap.add_argument("--tune", action="store_true",
                     help="only K2's and copy_blocks' times under each of TUNE_VARIANTS")
     ap.add_argument("--witness-child", metavar="DEVICE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.times is not None:
         return times_main(args.times)
+    if args.scrape is not None:
+        return scrape_main(args.scrape, args.history_keys)
     if args.tune:
         return tune_main()
     if args.witness_child is not None:  # [witness]'s child: arms before torch loads
@@ -6215,13 +6457,13 @@ def main() -> int:
     products += phase_serve(torch)
     serve_counts = dict(T.launches)
     check(not any(serve_counts.values()), f"the serving path launched {serve_counts}")
-    http_counts, http_trace = phase_http(torch, T)
+    http_counts, http_trace = phase_http(torch, T, smi)
     mesh_counts, _ = phase_mesh(torch, T, ps_summary)
     native_counts, _ = phase_native(torch, T, smi, native_build, ps_summary, shard_summary)
     check(not any(native_counts.values()), f"the native path launched {native_counts}")
     proto_counts, _ = phase_proto(torch, T, smi, ps_summary)
     check(not any(proto_counts.values()), f"the protocols' path launched {proto_counts}")
-    bench_counts, _ = phase_bench(torch, T)
+    bench_counts, _ = phase_bench(torch, T, smi)
     witness = phase_witness(torch, smi)
     paths = [echo_counts, ps_counts, shard_counts, cache_counts, stream_counts, dcn_counts,
              cluster_counts, http_counts, mesh_counts, native_counts, proto_counts,

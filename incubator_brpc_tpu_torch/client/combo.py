@@ -967,9 +967,15 @@ class ShardRoutedChannel(PartitionChannel):
                     ctrl.timeout_ms = timeout_ms
                 resp = method_spec.response_class()
                 sub.call_method(method_spec, ctrl, req, resp)
+                if ctrl.error_code:
+                    results[orig] = _ring.RingFailure(ctrl.error_code, ctrl.error_text())
+                    continue
+                # the reply's attachment leaves with its message, as on
+                # Channel.call_many's fallback (ring.RingReply)
+                att = ctrl.__dict__.get("response_attachment")
                 results[orig] = (
-                    _ring.RingFailure(ctrl.error_code, ctrl.error_text())
-                    if ctrl.error_code
+                    _ring.RingReply(resp.SerializeToString(), att)
+                    if att
                     else resp.SerializeToString()
                 )
         for orig, req, ctrl in percall:

@@ -372,6 +372,9 @@ class LatencyRecorder(Variable):
     def latency(self) -> float:
         """Windowed average latency in us."""
         self._flush_batches()
+        return self._window_average()
+
+    def _window_average(self) -> float:
         snaps = list(self._win_sum)
         s = sum(x[0] for x in snaps)
         n = sum(x[1] for x in snaps)
@@ -386,6 +389,20 @@ class LatencyRecorder(Variable):
     def max_latency(self) -> float:
         self._flush_batches()
         return self._max_window.get_value()
+
+    def stats(self, ratios=(0.5, 0.99)) -> tuple:
+        """(count, windowed average, [percentile at each ratio]): what
+        count(), latency() and latency_percentile() return, read after
+        ONE fold of the batched writes and one sum of the window's
+        buckets.  An exposition that reads many recorders (the /metrics
+        page's rpc_phase_latency_us family) pays one fold a recorder."""
+        self._flush_batches()
+        buckets = self._percentile.bucket_totals()
+        return (
+            self._count.get_value(),
+            self._window_average(),
+            [percentile_from_buckets(buckets, r) for r in ratios],
+        )
 
     def qps(self) -> float:
         self._flush_batches()
@@ -411,12 +428,14 @@ class LatencyRecorder(Variable):
         s = sum(x[0] for x in snaps)
         n = sum(x[1] for x in snaps)
         cs, cn = self._latency.sum_num()  # current partial second
+        # read after the one fold above (count(), max_latency() and qps()
+        # would each fold again)
         return {
-            "count": self.count(),
+            "count": self._count.get_value(),
             "latency_sum": s + cs,
             "latency_num": n + cn,
-            "max_latency": self.max_latency(),
-            "qps": self.qps(),
+            "max_latency": self._max_window.get_value(),
+            "qps": self._qps.get_value(),
             "buckets": {
                 str(i): c for i, c in enumerate(buckets) if c
             },

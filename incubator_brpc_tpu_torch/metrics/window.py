@@ -106,13 +106,16 @@ class Window(Variable):
 
     def get_value(self):
         if not self._additive:
+            # the second under way counts too: what arrived since the last
+            # tick sits in the reducer until the next reset takes it.  It
+            # is read before the ticks' samples, so a tick between the two
+            # reads moves it into a sample that the second read sees
+            live = Reducer.get_value(self._var)
             vals = list(self._resets)
             if not vals:
                 return self._var.get_value()
-            # the second under way counts too: what arrived since the last
-            # tick sits in the reducer until the next reset takes it
-            if Reducer.get_value(self._var) != self._var._identity:
-                vals.append(self._var.get_value())
+            if live != self._var._identity:
+                vals.append(live)
             return max(vals) if isinstance(self._var, Maxer) else min(vals)
         w = self._sampler.window()
         if w is None:

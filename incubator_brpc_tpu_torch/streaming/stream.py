@@ -118,6 +118,10 @@ class Stream:
         self.method = ""  # negotiating RPC's full method name (observe)
         self._ctrl = None  # negotiating controller, held until establish
         self._sock = None
+        # the SocketId of the life of _sock this stream is bound to: a
+        # recycled Socket object is reused by a later connection or
+        # listener, which a late frame of this stream must never reach
+        self._sock_id = 0
         self._established = threading.Event()
         self._closed = False
         self._failed = (0, "")
@@ -226,6 +230,7 @@ class Stream:
         """Wire the stream onto the connection once the peer's id is
         known (client: response meta arrived; server: request meta)."""
         self._sock = sock
+        self._sock_id = sock.sid
         self.remote_stream_id = remote_stream_id
         if remote_settings is not None:
             self._peer_max_buf = int(remote_settings.max_buf_size or 0)
@@ -277,9 +282,16 @@ class Stream:
 
     def _send_raw(self, frame_type: int, payload=None) -> int:
         sock = self._sock
-        if sock is None or sock.failed:
+        # held across the write, so the object cannot be recycled and
+        # reused under it; a life other than the bound one is gone
+        if sock is None or not sock._inuse_acquire():
             return errors.EFAILEDSOCKET
-        rc = sock.write(wire.pack_frame(self.remote_stream_id, frame_type, payload))
+        try:
+            if sock.sid != self._sock_id or sock.failed:
+                return errors.EFAILEDSOCKET
+            rc = sock.write(wire.pack_frame(self.remote_stream_id, frame_type, payload))
+        finally:
+            sock._inuse_release()
         if rc == 0:
             self.frames_sent += 1
             if payload is not None:
@@ -621,7 +633,7 @@ class Stream:
             self._idle_timer = 0
         with self._flow_cond:
             self._flow_cond.notify_all()
-        if self._sock is not None:
+        if self._sock is not None and self._sock.sid == self._sock_id:
             self._sock.stream_map.pop(self.stream_id, None)
         observe.deregister(self)
         self._close_span(self._failed[0])

@@ -26,6 +26,10 @@ class Acceptor(InputMessenger):
         self._server = server
         self._listen_sid = 0
         self._connections: Set[int] = set()
+        # accepted connections whose socket is being created: counted,
+        # since the dispatcher may hand one's first request to its
+        # handler before Socket.create returns
+        self._registering = 0
         self._lock = threading.Lock()
         self._reaper_stop = threading.Event()
         self._reaper = None
@@ -107,20 +111,28 @@ class Acceptor(InputMessenger):
             self._register_conn(conn, remote)
 
     def _register_conn(self, conn, remote):
-        sid = Socket.create(
-            SocketOptions(
-                fd=conn,
-                remote=remote,
-                messenger=self,
-                server=self._server,
-            )
-        )
         with self._lock:
-            self._connections.add(sid)
+            self._registering += 1
+        sid = None
+        try:
+            sid = Socket.create(
+                SocketOptions(
+                    fd=conn,
+                    remote=remote,
+                    messenger=self,
+                    server=self._server,
+                )
+            )
+        finally:
+            with self._lock:
+                self._registering -= 1
+                if sid is not None:
+                    self._connections.add(sid)
 
     def connection_count(self) -> int:
         self._gc()
-        return len(self._connections)
+        with self._lock:
+            return len(self._connections) + self._registering
 
     def connections(self):
         self._gc()

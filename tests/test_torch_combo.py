@@ -591,7 +591,6 @@ COPIED = {
     "analysis/manifest.py": {143},
     "builtin/__init__.py": {917},
     "builtin/flamegraph.py": {5},
-    "client/combo.py": {15, 165, 779},
     "client/auth.py": set(),
     "client/naming_remote.py": set(),
     "native/engine.cpp": set(),
@@ -650,9 +649,29 @@ COPIED = {
 # RingReply instead of being wiped with the pooled controller (and the
 # comments at JAX :5-6, :39, :284, :308 reworded).
 # metrics/window.py: a windowed Maxer/Miner counts the value recorded since
-# the sampler's last tick; client/naming_service.py: a naming thread
+# the sampler's last tick, read before the ticks' samples so that a tick
+# between the two reads cannot hide it; client/naming_service.py: a naming thread
 # signals its first server list, and a periodic service that fails its first
 # lookup delivers an empty one (tests/test_torch_repairs.py).
+# client/combo.py: ShardRoutedChannel.call_many's per-call fallback (a shard
+# channel without a ring surface, as in a combo of combos) returns a reply
+# that carried an attachment as a RingReply, as Channel.call_many does, where
+# the JAX package returns the message alone (and the comments at JAX :15,
+# :165, :779 reworded).  metrics/latency_recorder.py: stats() reads count,
+# average and percentiles after one fold of the batched writes (sharing
+# latency()'s window average), and mergeable_snapshot() reads its state
+# after one fold instead of four;
+# observability/latency_breakdown.py: the /metrics family and the
+# /latency_breakdown snapshot read each recorder through stats(), one fold a
+# recorder a page instead of five (tests/test_torch_repairs.py).
+# transport/acceptor.py: a connection counts from its accept on, while its
+# socket is being created, since the dispatcher can hand its first request to
+# a handler before Socket.create returns (tests/test_torch_repairs.py).
+# streaming/stream.py: the close and failure notices queue behind the DATA
+# batches already queued (the stream tests above; and the comment at JAX :23
+# reworded), and a stream writes only to the life of the pooled Socket object
+# it was established on, holding the object across the write
+# (tests/test_torch_repairs.py).
 DIVERGED = {
     "analysis/invariants.py": [("replace", 16, 17, 16, 17), ("replace", 83, 84, 83, 87)],
     "analysis/witness.py": [("replace", 20, 22, 20, 22), ("replace", 44, 45, 44, 47)],
@@ -671,13 +690,34 @@ DIVERGED = {
                           ('delete', 340, 342, 376, 376), ('replace', 493, 496, 527, 528), ('replace', 521, 524, 553, 554), ('replace', 720, 723, 750, 751),
                           ('replace', 789, 792, 817, 818)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
-    "metrics/window.py": [("insert", 111, 111, 111, 115)],
+    "metrics/window.py": [("insert", 108, 108, 108, 113), ("insert", 111, 111, 116, 118)],
     "client/naming_service.py": [("insert", 84, 84, 84, 90), ("insert", 173, 173, 179, 180),
                                  ("insert", 191, 191, 198, 199), ("insert", 207, 207, 215, 220)],
     "client/ring.py": [("replace", 4, 6, 4, 6), ("replace", 38, 39, 38, 39), ("insert", 139, 139, 139, 156),
                        ("insert", 144, 144, 161, 166), ("replace", 283, 284, 305, 306), ("insert", 305, 305, 327, 330),
                        ("replace", 307, 308, 332, 333), ("replace", 527, 528, 552, 555), ("replace", 539, 540, 566, 569),
                        ("replace", 616, 617, 645, 647)],
+    "client/combo.py": [("replace", 14, 15, 14, 15), ("replace", 164, 165, 164, 165),
+                        ("replace", 778, 779, 778, 779), ("insert", 969, 969, 969, 975),
+                        ("replace", 970, 972, 976, 978)],
+    "metrics/latency_recorder.py": [("insert", 374, 374, 374, 377), ("insert", 388, 388, 391, 405),
+                                    ("insert", 413, 413, 430, 432), ("replace", 414, 415, 433, 434),
+                                    ("replace", 417, 419, 436, 438)],
+    "observability/latency_breakdown.py": [("replace", 100, 101, 100, 101),
+                                           ("replace", 105, 109, 105, 109),
+                                           ("replace", 188, 196, 188, 191),
+                                           ("replace", 205, 206, 200, 202),
+                                           ("replace", 207, 209, 203, 205)],
+    "transport/acceptor.py": [("insert", 28, 28, 28, 32), ("replace", 109, 115, 113, 124),
+                              ("replace", 116, 119, 125, 130), ("replace", 122, 123, 133, 135)],
+    "streaming/stream.py": [("replace", 22, 23, 22, 23), ("insert", 120, 120, 120, 124),
+                            ("replace", 153, 154, 157, 159), ("insert", 227, 227, 232, 233),
+                            ("replace", 278, 279, 284, 287), ("replace", 280, 281, 288, 294),
+                            ("replace", 454, 456, 467, 483), ("delete", 457, 458, 484, 484),
+                            ("replace", 465, 466, 491, 492), ("replace", 609, 610, 635, 636),
+                            ("replace", 615, 616, 641, 642), ("replace", 619, 622, 645, 648),
+                            ("replace", 628, 629, 654, 655), ("replace", 636, 639, 662, 663),
+                            ("replace", 645, 646, 669, 670)],
 }
 
 

@@ -326,6 +326,15 @@ def test_hls_audio_only_stream():
     assert es[:2] == b"\xff\xf1", "ADTS header missing"
 
 
+def _flv_tag_count(gw, name):
+    r = FlvReader()
+    r.feed(gw.flv_snapshot(name))
+    n = 0
+    while r.read() is not None:
+        n += 1
+    return n
+
+
 def test_media_gateway_over_real_rtmp():
     """End-to-end: an RTMP publisher feeds the server's relay; the
     MediaGatewayService tap produces an HLS playlist + parseable
@@ -358,6 +367,11 @@ def test_media_gateway_over_real_rtmp():
                  if l.startswith("#EXTINF")]
             ) >= 2:
                 break
+            time.sleep(0.05)
+        # the archive's last tags may still be on their way when the second
+        # segment is cut: wait, inside the same deadline, until it holds
+        # every tag written (the sequence header and 75 frames)
+        while time.monotonic() < deadline and _flv_tag_count(gw, "room") < 76:
             time.sleep(0.05)
         pub.close()
         pl = gw.playlist("room")

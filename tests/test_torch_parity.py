@@ -146,7 +146,7 @@ EXPLICIT = {
     "tests/test_cluster_observability.py::test_merged_percentiles_exactly_equal_pooled": ["tests/test_torch_combo.py::test_merged_percentiles_exactly_equal_pooled"],
     "tests/test_cluster_observability.py::test_intrecorder_and_multidimension_mergeable_state": ["tests/test_torch_combo.py::test_intrecorder_and_multidimension_mergeable_state"],
     "tests/test_cluster_observability.py::test_stitched_trace_across_shard_processes": ["tests/test_torch_cluster_observability.py::test_stitched_trace_across_shard_processes"],
-    "tests/test_cluster_observability.py::test_cluster_latency_breakdown_merges_replicas_exactly": ["tests/test_torch_cluster_observability.py::test_cluster_latency_breakdown_merges_replicas_exactly"],
+    "tests/test_cluster_observability.py::test_cluster_latency_breakdown_merges_replicas_exactly": ["tests/test_torch_cluster_observability.py::test_cluster_latency_breakdown_merges_replicas_exactly", "tests/test_torch_repairs.py::test_phase_stats_print_the_reference_values_for_a_seeded_recorder"],
     "tests/test_cluster_observability.py::test_cluster_pages_reject_bad_input": ["tests/test_torch_cluster_observability.py::test_cluster_pages_reject_bad_input"],
     "tests/test_cluster_observability.py::test_resolve_replicas_forms": ["tests/test_torch_cluster_observability.py::test_resolve_replicas_forms"],
     "tests/test_cluster_observability.py::test_straggler_chaos_regression_names_the_slow_shard":
@@ -156,7 +156,7 @@ EXPLICIT = {
     "tests/test_cluster_observability.py::test_fanout_legs_carry_server_time": ["tests/test_torch_combo.py::test_fanout_legs_carry_server_time"],
     "tests/test_cluster_observability.py::test_rpc_dump_builtin_capture_and_read_back": ["tests/test_torch_cluster_observability.py::test_rpc_dump_builtin_capture_and_read_back"],
     # test_connection_types.py
-    "tests/test_connection_types.py::test_http_defaults_to_pooled_and_uses_distinct_connections": ["tests/test_torch_native.py::test_http_defaults_to_pooled_and_uses_distinct_connections"],
+    "tests/test_connection_types.py::test_http_defaults_to_pooled_and_uses_distinct_connections": ["tests/test_torch_native.py::test_http_defaults_to_pooled_and_uses_distinct_connections", "tests/test_torch_repairs.py::test_a_connection_counts_before_its_first_request_is_handled"],
     "tests/test_connection_types.py::test_short_connection_closes_after_rpc": ["tests/test_torch_native.py::test_short_connection_closes_after_rpc"],
     "tests/test_connection_types.py::test_connect_timeout_ms_is_honored": ["tests/test_torch_native.py::test_connect_timeout_ms_is_honored"],
     "tests/test_connection_types.py::test_internal_port_serves_builtins_public_denies": ["tests/test_torch_native.py::test_internal_port_serves_builtins_public_denies"],
@@ -385,7 +385,7 @@ EXPLICIT = {
     "tests/test_observability_depth.py::test_hotspots_heap_growth_pages": ["tests/test_torch_observability_depth.py::test_hotspots_heap_growth_pages"],
     "tests/test_observability_depth.py::test_rpcz_sqlite_persistence": ["tests/test_torch_observability_depth.py::test_rpcz_sqlite_persistence"],
     "tests/test_observability_depth.py::test_server_span_phase_stamps_and_response_size": ["tests/test_torch_observability_depth.py::test_server_span_phase_stamps_and_response_size"],
-    "tests/test_observability_depth.py::test_fanout_trace_tree_and_latency_breakdown": ["tests/test_torch_observability_depth.py::test_fanout_trace_tree_and_latency_breakdown"],
+    "tests/test_observability_depth.py::test_fanout_trace_tree_and_latency_breakdown": ["tests/test_torch_observability_depth.py::test_fanout_trace_tree_and_latency_breakdown", "tests/test_torch_repairs.py::test_metrics_page_folds_each_phase_recorder_once", "tests/test_torch_repairs.py::test_phase_stats_print_the_reference_values_for_a_seeded_recorder"],
     "tests/test_observability_depth.py::test_http_trace_propagation": ["tests/test_torch_observability_depth.py::test_http_trace_propagation"],
     "tests/test_observability_depth.py::test_latency_breakdown_method_cap_collapses_to_other": ["tests/test_torch_observability_depth.py::test_latency_breakdown_method_cap_collapses_to_other"],
     "tests/test_observability_depth.py::test_spandb_persistence_evicted_in_start_order": ["tests/test_torch_observability_depth.py::test_spandb_persistence_evicted_in_start_order"],
@@ -488,7 +488,7 @@ EXPLICIT = {
     "tests/test_ring.py::test_server_ring_flush_drop_times_out_exactly_once": ["tests/test_torch_ring.py::test_server_ring_flush_drop_times_out_exactly_once"],
     "tests/test_ring.py::test_server_ring_recovery_under_flush_faults": ["tests/test_torch_ring.py::test_server_ring_recovery_under_flush_faults"],
     "tests/test_ring.py::test_shard_call_many_crosses_once_per_shard": ["tests/test_torch_ring.py::test_shard_call_many_crosses_once_per_shard"],
-    "tests/test_ring.py::test_shard_call_many_controller_degrades_that_call_only": ["tests/test_torch_ring.py::test_shard_call_many_controller_degrades_that_call_only"],
+    "tests/test_ring.py::test_shard_call_many_controller_degrades_that_call_only": ["tests/test_torch_ring.py::test_shard_call_many_controller_degrades_that_call_only", "tests/test_torch_repairs.py::test_shard_call_many_fallback_keeps_each_reply_attachment"],
     "tests/test_ring.py::test_parallel_call_many_one_subwindow_per_leg": ["tests/test_torch_ring.py::test_parallel_call_many_one_subwindow_per_leg"],
     "tests/test_ring.py::test_window_reaches_micro_batcher_as_one_accumulation": ["tests/test_torch_ring.py::test_window_reaches_micro_batcher_as_one_accumulation"],
     "tests/test_ring.py::test_two_thread_concurrent_submit_harvest": ["tests/test_torch_ring.py::test_two_thread_concurrent_submit_harvest"],
@@ -583,7 +583,7 @@ EXPLICIT = {
     "tests/test_streaming_subsystem.py::test_stream_metrics_and_status_page": ["tests/test_torch_streaming_subsystem.py::test_stream_metrics_and_status_page"],
     "tests/test_streaming_subsystem.py::test_stream_rpcz_span_joined_to_rpc_trace": ["tests/test_torch_streaming_subsystem.py::test_stream_rpcz_span_joined_to_rpc_trace"],
     "tests/test_streaming_subsystem.py::test_stream_over_ici_device_payload": ["tests/test_torch_cache.py::test_stream_over_ici_device_payload"],
-    "tests/test_streaming_subsystem.py::test_oversized_single_frame_admitted_when_window_empty": ["tests/test_torch_streaming_subsystem.py::test_oversized_single_frame_admitted_when_window_empty"],
+    "tests/test_streaming_subsystem.py::test_oversized_single_frame_admitted_when_window_empty": ["tests/test_torch_streaming_subsystem.py::test_oversized_single_frame_admitted_when_window_empty", "tests/test_torch_repairs.py::test_a_stream_never_writes_to_the_next_life_of_its_socket"],
     "tests/test_streaming_subsystem.py::test_default_options_large_host_write_segments_within_window": ["tests/test_torch_streaming_subsystem.py::test_default_options_large_host_write_segments_within_window"],
     "tests/test_streaming_subsystem.py::test_segmented_abort_mid_message_resets_stream": ["tests/test_torch_streaming_subsystem.py::test_segmented_abort_mid_message_resets_stream"],
     "tests/test_streaming_subsystem.py::test_unknown_stream_rst_routes_back_to_writer": ["tests/test_torch_streaming_subsystem.py::test_unknown_stream_rst_routes_back_to_writer"],

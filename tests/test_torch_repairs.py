@@ -10,7 +10,11 @@ one, so a tick that lands between a recorder's creation and its first
 updates makes ``max_latency()`` read 0 after 1000 updates (the race behind
 ``tests/test_metrics.py::test_latency_recorder_percentiles`` failing about
 one run in three).  The port's window adds the reducer's live value when it
-holds one.  Here the tick is forced, so the case is deterministic.
+holds one, and reads it before the window's samples: a tick between the two
+reads would otherwise move it out of the reducer into a sample the read had
+already copied (``test_max_latency_sees_updates_after_a_tick`` read 0 about
+one run in 12 with twelve runs of this file at once on a loaded host).
+Here the ticks are forced, so the cases are deterministic.
 
 ``client/naming_service.py``, ``client/lb_with_naming.py``: a channel on a
 naming-service URL waits for the service's first server list, as the
@@ -19,20 +23,69 @@ reference does (``WaitForFirstBatchOfServers``).  In the JAX package
 at once can find no server ("failed to select/connect server"; the carried
 ``tests/test_overload_storm.py::test_cancel_frame_with_unknown_cid_is_ignored``
 failed so under load).  Here the naming thread is made late on purpose.
+
+``client/combo.py``: ``ShardRoutedChannel.call_many`` keeps each reply's
+attachment on its per-call fallback.  A shard channel without a ring surface
+(a combo of combos) runs its group through ``call_method``; in the JAX
+package the slot then holds the message alone and the value a ``Get``
+returned as its attachment is lost.  The port returns it as a
+``ring.RingReply``, as ``Channel.call_many`` does.
+
+``metrics/latency_recorder.py``, ``observability/latency_breakdown.py``: a
+``/metrics`` page reads each phase recorder once.  The JAX package reads
+count, average, p50 and p99 of each recorder one call at a time, and each
+call folds the recorder's batched writes first: five folds a recorder a
+page, so the page slows with the number of (method, phase) keys a process
+has seen.  The port reads them through ``LatencyRecorder.stats()``, one fold
+a recorder, and prints the same values.  ``mergeable_snapshot()`` (the state
+``/cluster/export`` sends) folds once too, where the JAX package folds four
+times, and exports the same state.
+
+``transport/acceptor.py``: a server counts a connection from its accept on.
+The acceptor adds a new connection to its set only after ``Socket.create``
+returns, and ``Socket.create`` has already handed the socket to the event
+dispatcher, so the connection's first request can reach its handler while
+``Server.connection_count()`` still leaves it out (the carried
+``tests/test_connection_types.py::test_http_defaults_to_pooled_and_uses_distinct_connections``
+counted 3 connections for 4 parked requests about one loaded run in 20, in
+both packages).  The port counts a connection while its socket is being
+created.  Here the acceptor is held inside ``Socket.create`` until the first
+request is in its handler.
+
+``streaming/stream.py``: a stream writes only to the life of the socket it
+was established on.  ``Socket`` objects are pooled: once a connection fails
+and is recycled, its object serves the next socket created, a connection or
+a new server's listener.  A stream kept the object, and a late frame (the
+FEEDBACK its consumer sends after delivering a batch) went out on that next
+life; on a listener the write failed and failed the socket, closing the new
+server's listening fd (the carried
+``tests/test_streaming_subsystem.py::test_oversized_single_frame_admitted_when_window_empty``
+got "Connection refused" on all 4 connects to a server it had just started,
+about one loaded run in 200, in both packages).  The port's stream keeps the
+``SocketId`` of the life it is bound to and holds the object across each
+write.  Here the object is recycled and reused on purpose.
 """
 
 import threading
 import time
 
+import numpy as np
+import torch
+
 from incubator_brpc_tpu_torch.client import naming_service
 from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
+from incubator_brpc_tpu_torch.client.combo import ShardRoutedChannel
 from incubator_brpc_tpu_torch.client.controller import Controller
 from incubator_brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder
 from incubator_brpc_tpu_torch.metrics.reducer import Maxer, Miner
 from incubator_brpc_tpu_torch.metrics.window import Window
 from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
 from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoResponse
 from incubator_brpc_tpu_torch.server.server import Server
+from incubator_brpc_tpu_torch.server.service import rpc_method
+from incubator_brpc_tpu_torch.transport.socket import Socket
 
 
 def test_max_latency_sees_updates_after_a_tick():
@@ -61,6 +114,26 @@ def test_extremum_window_combines_ticks_and_the_live_second():
     hi << 12
     lo << 2
     assert (whi.get_value(), wlo.get_value()) == (12, 2)
+
+
+def test_extremum_window_sees_the_live_second_across_a_tick(monkeypatch):
+    from incubator_brpc_tpu_torch.metrics import window
+
+    hi = Maxer()
+    w = Window(hi, 10)
+    w._sampler.take_sample()  # a tick before any update
+    hi << 1000
+    live_read = window.Reducer.get_value
+    ticked = []
+
+    def tick_then_read(var):
+        if not ticked:  # the sampler's tick lands between the two reads
+            ticked.append(True)
+            w._sampler.take_sample()
+        return live_read(var)
+
+    monkeypatch.setattr(window.Reducer, "get_value", tick_then_read)
+    assert w.get_value() == 1000 and ticked
 
 
 def test_first_call_waits_for_the_naming_services_first_list(monkeypatch):
@@ -113,3 +186,211 @@ def test_a_failing_periodic_service_delivers_an_empty_first_list():
         stop.set()
         t.join(5)
     assert not t.is_alive()
+
+
+def test_shard_call_many_fallback_keeps_each_reply_attachment():
+    """A ShardRoutedChannel over two ShardRoutedChannels, each over one PS
+    server: the outer window degrades to per-call Gets (no ring surface
+    below it), and each slot still carries the value as its attachment."""
+    servers, inner = [], []
+    for _ in range(2):
+        srv = Server()
+        srv.add_service(PsService(device=torch.device("cpu")))
+        assert srv.start(0) == 0
+        servers.append(srv)
+        shard = ShardRoutedChannel()
+        sub = Channel(ChannelOptions(timeout_ms=10000))
+        assert sub.init(f"127.0.0.1:{srv.port}") == 0
+        shard.set_partitions([sub])
+        inner.append(shard)
+    outer = ShardRoutedChannel()
+    outer.set_partitions(inner)
+    try:
+        stub = ps_stub(outer)
+        rng = np.random.RandomState(16)
+        keys = [f"k{i}" for i in range(12)]
+        assert {outer.shard_of(k, 2) for k in keys} == {0, 1}
+        vals = {k: rng.randn(2, 4 + i).astype(np.float32).tobytes()
+                for i, k in enumerate(keys)}
+        for k in keys:
+            c = Controller()
+            c.request_attachment.append(vals[k])
+            stub.Put(c, EchoRequest(message=k))
+            assert not c.failed(), c.error_text()
+        res = stub.call_many("Get", [EchoRequest(message=k) for k in keys])
+        for k, r in zip(keys, res):
+            assert type(r).__name__ == "RingReply", (k, type(r))
+            assert r.attachment.to_bytes() == vals[k]
+            c = Controller()
+            per_call = stub.Get(c, EchoRequest(message=k))
+            assert r.message == per_call.SerializeToString()
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
+def _seeded_phase_recorders(lb, tag):
+    """Three phase recorders of one method, fed the same seeded latencies
+    (batched and direct writes), then folded into their window by one tick:
+    later ticks of the 1 Hz sampler only add empty seconds, which change
+    no value read here for the window's 10 s."""
+    rng = np.random.RandomState(16)
+    recs = []
+    for phase in ("parse", "queue", "callback"):
+        rec = lb.recorder(f"Repairs.{tag}", phase)
+        for us in rng.lognormal(6, 1.5, 400).astype(np.int64):
+            rec.update_batched(int(us))
+        for us in rng.randint(1, 50000, 100):
+            rec.update(int(us))
+        for us in rng.lognormal(4, 1, 50).astype(np.int64):
+            rec.update_batched(int(us))
+        rec._psampler.take_sample()
+        recs.append(rec)
+    return recs
+
+
+def test_metrics_page_folds_each_phase_recorder_once(monkeypatch):
+    from incubator_brpc_tpu_torch.builtin import metrics_page
+    from incubator_brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder
+    from incubator_brpc_tpu_torch.observability import latency_breakdown as lb
+
+    _seeded_phase_recorders(lb, "folds")
+    me, folds = threading.current_thread(), {}
+    flush = LatencyRecorder._flush_batches
+
+    def counted(rec):
+        if threading.current_thread() is me:  # not the 1 Hz sampler's ticks
+            folds[id(rec)] = folds.get(id(rec), 0) + 1
+        return flush(rec)
+
+    monkeypatch.setattr(LatencyRecorder, "_flush_batches", counted)
+    with lb._lock:
+        recs = list(lb._recorders.values())
+    status, body, _ = metrics_page(None, None)
+    assert status == 200 and 'method="Repairs.folds"' in body
+    assert {folds.get(id(r), 0) for r in recs} == {1}
+    # the exported state (/cluster/export) folds each recorder once too
+    folds.clear()
+    assert "Repairs.folds" in lb.mergeable_snapshot()
+    assert {folds.get(id(r), 0) for r in recs} == {1}
+
+
+def test_phase_stats_print_the_reference_values_for_a_seeded_recorder():
+    """The port's page lines, /latency_breakdown snapshot and exported
+    state for three seeded recorders equal the JAX package's (whose reads
+    the port's were, before stats())."""
+    from incubator_brpc_tpu.builtin import metrics_page as jax_metrics_page
+    from incubator_brpc_tpu.observability import latency_breakdown as jax_lb
+    from incubator_brpc_tpu_torch.builtin import metrics_page
+    from incubator_brpc_tpu_torch.observability import latency_breakdown as lb
+
+    recs = _seeded_phase_recorders(lb, "values")
+    jax_recs = _seeded_phase_recorders(jax_lb, "values")
+
+    def lines(page):
+        return sorted(l for l in page(None, None)[1].splitlines()
+                      if 'method="Repairs.values"' in l)
+
+    assert len(lines(metrics_page)) == 12
+    assert lines(metrics_page) == lines(jax_metrics_page)
+    assert lb.snapshot()["Repairs.values"] == jax_lb.snapshot()["Repairs.values"]
+
+    def state(mod):  # qps is a rate over the sampler's ticks: it moves between reads
+        return {phase: {k: v for k, v in snap.items() if k != "qps"}
+                for phase, snap in mod.mergeable_snapshot()["Repairs.values"].items()}
+
+    assert state(lb) == state(jax_lb)
+    for rec in recs + jax_recs:
+        assert rec.count() == 550
+    for rec in recs:
+        assert rec.stats((0.5, 0.9, 0.99)) == (
+            rec.count(), rec.latency(),
+            [rec.latency_percentile(r) for r in (0.5, 0.9, 0.99)])
+
+
+def test_a_connection_counts_before_its_first_request_is_handled(monkeypatch):
+    in_handler, counted = threading.Event(), []
+    srv = Server()
+
+    class Counting(EchoService):
+        SERVICE_NAME = "EchoService"
+
+        def native_fastpaths(self):
+            return {}
+
+        @rpc_method(EchoRequest, EchoResponse)
+        def Echo(self, controller, request, response, done):
+            counted.append(srv.connection_count())
+            in_handler.set()
+            response.message = request.message
+            done()
+
+    create = Socket.create.__func__
+
+    def held_create(cls, options):
+        sid = create(cls, options)
+        if options.server is srv:
+            in_handler.wait(5)  # the socket is live: its request is handled first
+        return sid
+
+    srv.add_service(Counting())
+    assert srv.start(0) == 0
+    monkeypatch.setattr(Socket, "create", classmethod(held_create))
+    ch = Channel(ChannelOptions(timeout_ms=8000, connection_group="counted-early"))
+    try:
+        assert ch.init(f"127.0.0.1:{srv.port}") == 0
+        c = Controller()
+        assert echo_stub(ch).Echo(c, EchoRequest(message="early")).message == "early"
+        assert not c.failed(), c.error_text()
+        assert in_handler.is_set() and counted == [1]
+        assert srv.connection_count() == 1
+    finally:
+        ch.close()
+        srv.stop()
+
+
+def test_a_stream_never_writes_to_the_next_life_of_its_socket():
+    import socket as pysocket
+
+    from incubator_brpc_tpu_torch import errors
+    from incubator_brpc_tpu_torch.protocols import streaming as wire
+    from incubator_brpc_tpu_torch.streaming.stream import Stream
+    from incubator_brpc_tpu_torch.transport.socket import SocketOptions
+    from incubator_brpc_tpu_torch.utils.endpoint import EndPoint
+    from incubator_brpc_tpu_torch.utils.iobuf import IOBuf
+
+    def make():
+        a, b = pysocket.socketpair()
+        sid = Socket.create(SocketOptions(fd=a, remote=EndPoint.tcp("127.0.0.1", 1)))
+        return sid, Socket.address(sid), b
+
+    sid, old, old_peer = make()
+    stream = Stream.create(Controller(), None)
+    stream.establish(old, 7)
+    old.set_failed(errors.EFAILEDSOCKET, "peer gone")
+    old.recycle()
+    made = []
+    try:
+        for _ in range(16):  # the pool hands the freed object out again
+            made.append(make())
+            if made[-1][1] is old:
+                break
+        new_sid, new, new_peer = made[-1]
+        assert new is old and new_sid != sid and not new.failed
+        # a late FEEDBACK of the stream: refused, and the new life untouched
+        rc = stream._send_raw(wire.FRAME_FEEDBACK, IOBuf((64).to_bytes(8, "big")))
+        assert rc == errors.EFAILEDSOCKET
+        assert not new.failed
+        new_peer.setblocking(False)
+        try:
+            got = new_peer.recv(64)
+        except BlockingIOError:
+            got = b""
+        assert got == b""
+    finally:
+        stream.close()
+        for s_id, sock, peer in made:
+            sock.set_failed(errors.EFAILEDSOCKET, "test over")
+            sock.recycle()
+            peer.close()
+        old_peer.close()
