@@ -296,8 +296,8 @@ two roots in turns (A, B, B, A).
 ROOT at its defaults (its definition untouched), after K (default 0)
 (method, phase) recorders of history have been fed, with the scrape's
 handlers timed from outside: per scrape round, the wall and thread CPU
-time of /cluster/export and /cluster/metrics, inside the latter the
-export state, the merge and the render, the _flush_batches calls, the
+time of /cluster/export and /cluster/metrics, the export state (inside
+both), the merge and the render, the _flush_batches calls, the
 round's time outside the handlers, the same round on an idle server,
 and the CPU share the scrape took of the ON segments.  One JSON line
 with the card's name and power limit; no kernel is built.  Compare two
