@@ -236,12 +236,19 @@ file.  Phases, each fatal on failure:
              counts (sharded executions == merges == batches, window
              crossings, keys moved, prefill once a session, ...); then
              main()'s device tail at its 64 MB defaults: bench_transmit_op
-             (a chain of K1), the chunk sweep (every pallas row one K2
-             launch a transmit, no fallback; its best mode applied) and
-             the headline echo (48 - 8 echoes, 9 reps, every echo
-             answered).  Prints each bench's time, the 64 MB figures, the
-             host time to issue one transmit of bench_transmit_op's chain
-             beside K1's, and the bench's line of those figures; the
+             (a chain of K1, the fold and the scalar add, its launches
+             queued behind a sleep and timed by CUDA events: the card's
+             time a transmit, as the JAX bench's one program gives it),
+             the chunk sweep (every pallas row one K2 launch a transmit,
+             no fallback; its best mode applied) and the headline echo
+             (48 - 8 echoes, 9 reps, every echo answered; host-clocked,
+             as the JAX bench's).  Prints each bench's time, the 64 MB
+             figures, the transmit op's figure beside the host's time to
+             issue one transmit of its chain, K1's frame time as [times]
+             times it and the HBM bound (and fails if the figure is under
+             the bound: the chain was not timed whole), how many
+             transmits the stream queues behind a sleep before the host
+             waits, and the bench's line of those figures; the
              cluster_scrape_overhead result also stands on a line of its
              own beside the card's name and power limit;
 17. witness — the analysis toolchain's runtime witnesses on the card,
@@ -5084,10 +5091,12 @@ def phase_bench(torch, T, smi):
     """[bench]: the port's bench on the card.  Every bench_* function at
     its CPU guard's small arguments (each result free of error keys, -1
     and failed calls, and holding its guard's counts), then main()'s
-    device tail at its 64 MB defaults: bench_transmit_op, the chunk sweep
-    (its best mode applied, as main() does) and the headline echo, with
-    the host time to issue one K1 transmit beside K1's.  Returns the
-    path's launch counts and the 64 MB figures."""
+    device tail at its 64 MB defaults: bench_transmit_op (device-timed),
+    the chunk sweep (its best mode applied, as main() does) and the
+    headline echo, with the host time to issue one transmit of the
+    transmit op's chain and K1's frame time beside the op's figure, which
+    must not read under the HBM bound.  Returns the path's launch counts
+    and the 64 MB figures."""
     from incubator_brpc_tpu_torch.ops.transfer import device_copy_with_checksum
     from incubator_brpc_tpu_torch.parallel.ici import get_fabric
     from incubator_brpc_tpu_torch.tools import bench
@@ -5142,16 +5151,59 @@ def phase_bench(torch, T, smi):
         s = s + csum
     issue_us = (time.perf_counter() - t0) / n_issue * 1e6
     torch.cuda.synchronize()
+    # K1 on the frame as [times] times it (queued, over cold pairs), and
+    # how many transmits the stream queues before the host blocks
+    m, n = MAIN_SHAPE
+    br = T._fit_block_rows(m)
+    frame_ms = queued_ms(torch, walk(lambda src, o: T._copy_csum(src, None, br, out=o),
+                                     cold_pairs(torch, x)))
+    blocked_at = queue_depth(torch, device_copy_with_checksum, x)
+    queued = blocked_at - 1 if blocked_at else QUEUE_PROBE_TRANSMITS
     T.reset_launch_counts()  # the issue timing is not a path's launch
-    print(f"[bench] 64 MB: transmit op {full['pallas_transmit_64mb_us']} us a transmit "
-          f"({full['pallas_transmit_64mb_gbps']} GB/s), host issue {issue_us:.1f} us a "
-          f"transmit; echo median {full.get('ici_echo_e2e_us_per_echo_median')} us "
+    bound_us = copy_bound_ms(x.nbytes, m * n, n) * 1e3
+    op_us = full["pallas_transmit_64mb_us"]
+    print(f"[bench] 64 MB: transmit op {op_us} us a transmit on the card's clock "
+          f"({full['pallas_transmit_64mb_gbps']} GB/s; queued windows of at most "
+          f"{bench.QUEUED_TRANSMITS} transmits), host issue {issue_us:.1f} us a transmit, "
+          f"K1 alone {frame_ms * 1e3:.1f} us a frame as [times] times it, HBM bound "
+          f"{bound_us:.1f} us; card: {smi}")
+    print(f"[bench] launch queue: behind a sleep, the host issued {queued} transmits "
+          f"({3 * queued} launches) without blocking"
+          + (f"; transmit {blocked_at} waited for the card" if blocked_at else ""))
+    check(op_us >= bound_us, f"[bench] the transmit op reads {op_us} us, under the HBM bound "
+                             f"{bound_us:.1f} us: the chain was not timed whole")
+    print(f"[bench] 64 MB: echo median {full.get('ici_echo_e2e_us_per_echo_median')} us "
           f"({full.get('ici_64mb_echo_gbps')} GB/s) under the sweep's best "
           f"{full['ici_pipeline_best']['mode']}/{full['ici_pipeline_best']['chunk_mb']} MB; "
           f"{secs:.1f} s")
     print(json.dumps({"bench": full}))
     print(f"[bench] launches {counts}; the phase {time.perf_counter() - t_phase:.1f} s")
-    return counts, {**full, "host_issue_us": issue_us}
+    return counts, {**full, "host_issue_us": issue_us, "k1_frame_ms": frame_ms}
+
+
+QUEUE_PROBE_CYCLES = 2_000_000_000  # about a second of card sleep
+QUEUE_PROBE_TRANSMITS = 1000
+
+
+def queue_depth(torch, transmit, x):
+    """The first transmit of bench_transmit_op's chain that the host,
+    issuing behind a long sleep, had to wait for the card to take (0 if
+    none of QUEUE_PROBE_TRANSMITS did): a launch that finds the stream's
+    queue full waits for the card, which sleeps, so its issue takes over
+    20 ms where the others take tens of us."""
+    s = torch.zeros((), dtype=torch.float32, device=x.device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_PROBE_CYCLES)
+    y, blocked_at = x, 0
+    for k in range(1, QUEUE_PROBE_TRANSMITS + 1):
+        t0 = time.perf_counter()
+        y, csum = transmit(y)
+        s = s + csum
+        if time.perf_counter() - t0 > 0.02:
+            blocked_at = k
+            break
+    torch.cuda.synchronize()
+    return blocked_at
 
 WITNESS_SLICE = 10  # ici://slice10/chip{0..3}: the child's servers
 WITNESS_ECHOES = 4  # per chunk mode, each checked

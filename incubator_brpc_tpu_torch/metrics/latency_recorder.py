@@ -14,6 +14,7 @@ _count — these names feed /vars and the Prometheus exporter.
 from __future__ import annotations
 
 import math
+import operator
 import threading
 from collections import deque
 from typing import List
@@ -136,13 +137,16 @@ class Percentile:
     """Log-bucketed percentile estimator (reference detail/percentile.h).
 
     Thread-local bucket counters merged on read; a ring of per-second
-    snapshots gives windowed percentiles.
+    snapshots gives windowed percentiles.  ``_window`` is the running
+    total of the ring's snapshots, kept by each tick under the lock that
+    guards the live second, so a read is one pass and sees a tick whole.
     """
 
     def __init__(self, window_size: int = 10):
         self._lock = threading.Lock()
         self._buckets = [0] * _NUM_BUCKETS
         self._ring: deque = deque(maxlen=window_size)
+        self._window = [0] * _NUM_BUCKETS
 
     def update(self, latency_us: int):
         idx = _bucket_of(int(latency_us))
@@ -169,23 +173,24 @@ class Percentile:
                 i = j
 
     def take_sample(self):
+        # an idle second (most recorders, most ticks) costs two any()
+        # scans, and the sums run in C: the 1 Hz sampler ticks every
+        # recorder of the process
         with self._lock:
-            snap = self._buckets[:]
+            snap = self._buckets
             self._buckets = [0] * _NUM_BUCKETS
-        self._ring.append(snap)
+            ring = self._ring
+            if len(ring) == ring.maxlen and any(ring[0]):  # the append evicts it
+                self._window = list(map(operator.sub, self._window, ring[0]))
+            if any(snap):
+                self._window = list(map(operator.add, self._window, snap))
+            ring.append(snap)
 
     def bucket_totals(self) -> List[int]:
         """Windowed bucket counts (ring snapshots + the current partial
         second) — the raw histogram state mergeable_snapshot exports."""
-        snaps = list(self._ring)
         with self._lock:
-            cur = self._buckets[:]
-        total_buckets = cur
-        for s in snaps:
-            for i, c in enumerate(s):
-                if c:
-                    total_buckets[i] += c
-        return total_buckets
+            return list(map(operator.add, self._window, self._buckets))
 
     def get_percentile(self, ratio: float) -> float:
         """ratio in (0,1], e.g. 0.99."""
@@ -202,6 +207,10 @@ class LatencyRecorder(Variable):
         self._max_window = Window(self._max_latency, window_size)
         self._percentile = Percentile(window_size)
         self._win_sum = deque(maxlen=window_size)
+        # a tick's two moves (the live buckets and the live sum into the
+        # window) and a reader's reads of both happen under this lock, so
+        # a read sees the window before a tick or after it
+        self._window_lock = threading.Lock()
         self._wtls = threading.local()  # fused write-path agent cache
         self.bulk_folded = False  # ever fed by update_bulk (mean folds)
         # batched write path: per-thread append-only buffers, folded by
@@ -372,14 +381,24 @@ class LatencyRecorder(Variable):
     def latency(self) -> float:
         """Windowed average latency in us."""
         self._flush_batches()
-        return self._window_average()
+        return self._window_average(*self._read_window(buckets=False)[1:])
 
-    def _window_average(self) -> float:
-        snaps = list(self._win_sum)
-        s = sum(x[0] for x in snaps)
-        n = sum(x[1] for x in snaps)
+    def _read_window(self, buckets: bool = True) -> tuple:
+        """(bucket totals or None, the ticks' latency sum and count, the
+        live second's sum and count), read whole across a tick."""
+        with self._window_lock:
+            totals = self._percentile.bucket_totals() if buckets else None
+            s = n = 0
+            for ws, wn in self._win_sum:
+                s += ws
+                n += wn
+            cs, cn = self._latency.sum_num()
+        return totals, s, n, cs, cn
+
+    @staticmethod
+    def _window_average(s: int, n: int, cs: int, cn: int) -> float:
         if n == 0:
-            return self._latency.get_value()
+            return cs / cn if cn else 0.0
         return s / n
 
     def latency_percentile(self, ratio: float) -> float:
@@ -397,10 +416,10 @@ class LatencyRecorder(Variable):
         buckets.  An exposition that reads many recorders (the /metrics
         page's rpc_phase_latency_us family) pays one fold a recorder."""
         self._flush_batches()
-        buckets = self._percentile.bucket_totals()
+        buckets, *sums = self._read_window()
         return (
             self._count.get_value(),
-            self._window_average(),
+            self._window_average(*sums),
             [percentile_from_buckets(buckets, r) for r in ratios],
         )
 
@@ -423,11 +442,7 @@ class LatencyRecorder(Variable):
         pooled samples.  Buckets are sparse {index: count} with string
         keys so the dict survives a JSON round-trip unchanged."""
         self._flush_batches()
-        buckets = self._percentile.bucket_totals()
-        snaps = list(self._win_sum)
-        s = sum(x[0] for x in snaps)
-        n = sum(x[1] for x in snaps)
-        cs, cn = self._latency.sum_num()  # current partial second
+        buckets, s, n, cs, cn = self._read_window()
         # read after the one fold above (count(), max_latency() and qps()
         # would each fold again)
         return {
@@ -478,6 +493,8 @@ class _PercentileSampler:
         self.window_size = rec._win_sum.maxlen
 
     def take_sample(self):
-        self._rec._flush_batches()  # fold batched writes into this tick
-        self._rec._percentile.take_sample()
-        self._rec._win_sum.append(self._rec._latency.reset())
+        rec = self._rec
+        rec._flush_batches()  # fold batched writes into this tick
+        with rec._window_lock:
+            rec._percentile.take_sample()
+            rec._win_sum.append(rec._latency.reset())

@@ -102,18 +102,23 @@ class Window(Variable):
             self._sampler.take_sample = self._take_reset_sample  # type: ignore
 
     def _take_reset_sample(self):
-        self._resets.append(self._var.reset())
+        with self._sampler.lock:
+            self._resets.append(self._var.reset())
 
     def get_value(self):
         if not self._additive:
             # the second under way counts too: what arrived since the last
             # tick sits in the reducer until the next reset takes it.  It
             # is read before the ticks' samples, so a tick between the two
-            # reads moves it into a sample that the second read sees
+            # reads moves it into a sample that the second read sees; the
+            # samples are read under the lock the tick holds from its reset
+            # to its append, so a live read that found the reducer reset
+            # finds the sample appended
             live = Reducer.get_value(self._var)
-            vals = list(self._resets)
-            if not vals:
-                return self._var.get_value()
+            with self._sampler.lock:
+                vals = list(self._resets)
+            if not vals:  # no tick yet: the live read is the window
+                return 0 if live == self._var._identity else live
             if live != self._var._identity:
                 vals.append(live)
             return max(vals) if isinstance(self._var, Maxer) else min(vals)

@@ -60,15 +60,20 @@ stands in).
 
 Completion: the JAX bench chains its transmits inside one jitted
 program and forces them with a scalar fetch.  Here each transmit is a
-kernel launch issued from Python on the previous output, and the same
-scalar fetch (a ``float()`` of elements of the last output) forces the
-chain, so a timed region ends only when the card has finished it.  A
-Python-issued launch adds host issue time per transmit that the JAX
-bench's one program does not have; the marginal cost per transmit stays
-the card's time only while the host issues a transmit in less than the
-card runs it (K1 on 64 MB: 0.0519 ms, NVIDIA H100 80GB HBM3 at 700 W,
-PERF.md §6).  ``chip_smoke.py``'s ``[bench]`` phase prints the host's
-issue time per transmit beside it.  ``main()``'s line adds one key to the JAX bench's: ``card``,
+kernel launch issued from Python on the previous output.  The transmit
+op (``pallas_transmit_64mb_us``) reads the card's time all the same: on
+the card its chains are queued behind a sleep kernel and timed by CUDA
+events between the sleep's end and the chain's end
+(``tools/_device_time.py``), so the host's issue time per transmit,
+which can exceed K1's (PERF.md §6), stays out of the figure, as it stays
+out of the JAX bench's one program; on the CPU a chain is timed on the
+host clock up to the fold's fetch.  Every other chain (the chunk sweep,
+the headline echo, the DCN echo) is issued from Python in both benches,
+and the same scalar fetch (a ``float()`` of elements of the last output)
+forces it, so a timed region ends only when the card has finished it and
+includes the host's issue time.  ``chip_smoke.py``'s ``[bench]`` phase
+prints the transmit op's figure beside the host's issue time per
+transmit and K1's own frame time.  ``main()``'s line adds one key to the JAX bench's: ``card``,
 the card's name and power limit as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` prints them.
 """
@@ -551,32 +556,77 @@ def bench_tcp_echo(payload=4096, calls=4000, threads=8):
     return out
 
 
+# transmits a queued window of bench_transmit_op's chain holds on the card
+# (three launches each: K1, the fold, the scalar add; an H100's stream took
+# 340 behind a sleep before the host waited); a longer chain is timed in
+# consecutive windows, its device times added
+QUEUED_TRANSMITS = 200
+
+
+def transmit_chain(y, s, iters):
+    """``iters`` transmits, each copying the previous one's output, their
+    checksums added to the device scalar ``s``: (last output, sum)."""
+    from incubator_brpc_tpu_torch.ops.transfer import device_copy_with_checksum
+
+    for _ in range(iters):
+        y, csum = device_copy_with_checksum(y)
+        s = s + csum
+    return y, s
+
+
+def transmit_fold(y, s):
+    """The scalar fetched at a chain's end: it depends on every transmit."""
+    return y[0, 0] + y[-1, -1] + 0.0 * s
+
+
 def bench_transmit_op(mb=64, hi=200, lo=8, reps=3, device=None):
     """Marginal-cost bandwidth of the fabric's transmit op (K1,
     ``copy_csum_blocks``).
 
     Chains `hi` (resp. `lo`) data-dependent transmissions of a 64MB
     payload — each launch copies the previous launch's output — with
-    the checksums summed on the card, fetches a scalar folded from the
-    final output (forcing every pass to complete), and divides the time
-    difference by (hi - lo) transmissions. Counts 2x payload per pass
-    (HBM read + write), the same accounting as reference rdma_perf.
-    The launches are issued from Python (the module docstring says what
-    that adds)."""
-    from incubator_brpc_tpu_torch.ops.transfer import device_copy_with_checksum
+    the checksums summed on the card and a scalar folded from the final
+    output, and divides the time difference by (hi - lo) transmissions.
+    Counts 2x payload per pass (HBM read + write), the same accounting
+    as reference rdma_perf.  On the card a chain's time is the card's:
+    its launches are queued behind a sleep and timed by CUDA events
+    (``tools/_device_time.py``), in windows of at most QUEUED_TRANSMITS
+    transmits carrying the output and the sum from one to the next, the
+    fold in the last, so the figure is the card's time per transmit, as
+    the JAX bench's one jitted program gives it.  On the CPU (the plain
+    versions) a chain runs as it is issued, and the host clock times it
+    up to the fold's fetch: a CPU has no queue to fill."""
+    from incubator_brpc_tpu_torch.analysis.device_witness import allowed_transfer
+    from incubator_brpc_tpu_torch.tools._device_time import SLEEP_CYCLES, queued_ms
 
     dev = device_for_chip(0, device)
     rows = (mb << 20) // (2048 * 4)
+    cycles = SLEEP_CYCLES
 
     def chain(a, iters):
-        # csum accumulates through a device scalar (scalar adds only —
-        # no extra full-array op rides the measured pass), and the
-        # final fetch depends on it, so every copy+verify completes
-        y, s = a, torch.zeros((), dtype=torch.float32, device=dev)
-        for _ in range(iters):
-            y, csum = device_copy_with_checksum(y)
-            s = s + csum
-        return float(y[0, 0] + y[-1, -1] + 0.0 * s)
+        """Seconds the chain of `iters` transmits from `a` took."""
+        nonlocal cycles
+        s = torch.zeros((), dtype=torch.float32, device=dev)
+        if dev.type != "cuda":
+            t0 = time.perf_counter()
+            fold = transmit_fold(*transmit_chain(a, s, iters))
+            with allowed_transfer("bench.device-time"):
+                float(fold)
+            return time.perf_counter() - t0
+        y, ms, fold = a, 0.0, None
+        for done in range(0, iters, QUEUED_TRANSMITS):
+            n = min(QUEUED_TRANSMITS, iters - done)
+            last = done + n == iters
+
+            def window(y=y, s=s, n=n, last=last):
+                y, s = transmit_chain(y, s, n)
+                return y, s, transmit_fold(y, s) if last else None
+
+            part, (y, s, fold), cycles = queued_ms(window, cycles)
+            ms += part
+        with allowed_transfer("bench.device-time"):
+            float(fold)
+        return ms / 1e3
 
     base = torch.linspace(
         0.0, 1.0, rows * 2048, dtype=torch.float32, device=dev
@@ -587,12 +637,8 @@ def bench_transmit_op(mb=64, hi=200, lo=8, reps=3, device=None):
     best_per = None
     k = 2
     for _ in range(reps):
-        t0 = time.perf_counter()
-        chain(xs[k], hi)
-        t_hi = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        chain(xs[k + 1], lo)
-        t_lo = time.perf_counter() - t0
+        t_hi = chain(xs[k], hi)
+        t_lo = chain(xs[k + 1], lo)
         k += 2
         per = (t_hi - t_lo) / (hi - lo)
         if per > 0 and (best_per is None or per < best_per):

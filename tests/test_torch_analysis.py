@@ -462,7 +462,8 @@ def test_every_unscoped_hot_sync_on_the_tree_is_allowlisted(tree_census):
     # the scoped pulls the census knows, each under its manifest key
     scoped = {s.scope_key for s in tree_census.by_kind("host-sync") if s.scope_key}
     assert scoped == {"decode.token-sums", "cache.host-spill", "dcn.wire", "ps.forward-pull",
-                      "ps.client-merge", "iobuf.host-view", "profiler.capture-sync"}
+                      "ps.client-merge", "iobuf.host-view", "profiler.capture-sync",
+                      "bench.device-time"}
 
 
 @pytest.mark.parametrize("flags", [("--all",), ("--device",), ("--locks",),
@@ -524,7 +525,7 @@ def test_checked_in_manifests_all_justified():
     assert load_device_manifest().internal_keys() == {
         "decode.token-sums", "cache.host-spill", "dcn.wire", "ps.forward-pull",
         "ps.client-merge", "iobuf.host-view", "profiler.capture-sync",
-        "bench.device-witness"}
+        "bench.device-witness", "bench.device-time"}
     assert load_device_manifest().keys() - load_device_manifest().internal_keys() == {
         "smoke.witness"}
 

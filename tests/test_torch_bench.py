@@ -403,6 +403,18 @@ _ICI_RESOLVED = {"ici_echo_e2e_us_per_echo_median", "ici_echo_e2e_us_per_echo_mi
                  "ici_echo_e2e_us_per_echo_max", "ici_64mb_echo_gbps"}
 
 
+def _holds_the_benchs_rate(gbps, mb, us):
+    """Whether ``gbps`` is the bench's figure for ``us``: both benches
+    print round((2 * mb / 1024) / t, 1) for a time t that they print as
+    ``us``, t in microseconds rounded to 0.1, so the figure lies between
+    the figures of that rounding's two ends.  Exact at any load, where a
+    bare ``gbps > 0`` reads 0.0 once t passes 2 * mb / 1024 / 0.05 s."""
+    assert us > 0.05, us
+    num = 2 * mb / 1024
+    lo, hi = (us + 0.0500001) * 1e-6, (us - 0.0500001) * 1e-6
+    return round(num / lo, 1) <= gbps <= round(num / hi, 1)
+
+
 def test_ici_bench_structure_and_dispatch_guard(jax_engine, fabrics):
     kw = dict(mb=1, hi=4, lo=2, reps=2)
     want = jax_bench.bench_ici_rpc(**kw)
@@ -415,9 +427,54 @@ def test_ici_bench_structure_and_dispatch_guard(jax_engine, fabrics):
             "ici_echo_e2e_us_per_echo_all", "ici_rpc_dispatch_p50_us", "ici_rpc_ok"}
         assert 0 < out["ici_rpc_dispatch_p50_us"] < 200_000, out
         if resolved:
-            assert out["ici_64mb_echo_gbps"] > 0, out
+            all_us = out["ici_echo_e2e_us_per_echo_all"]
+            assert out["ici_echo_e2e_us_per_echo_median"] == all_us[len(all_us) // 2], out
+            assert out["ici_echo_e2e_us_per_echo_median"] > 0, out
+            assert _holds_the_benchs_rate(out["ici_64mb_echo_gbps"], kw["mb"],
+                                          out["ici_echo_e2e_us_per_echo_median"]), out
     # every echo of every chain completed: 2 warm + reps * (hi + lo)
     assert got["ici_rpc_ok"] == want["ici_rpc_ok"] == 2 + 2 * (4 + 2)
+
+
+# the keys the JAX bench's bench_transmit_op returns when a marginal
+# time resolved (bench.py:622-625); its chain raises on the CPU (Pallas
+# there runs in interpret mode only), so the chain is held to the JAX
+# package's device_copy_with_checksum in interpret mode instead
+_TRANSMIT_RESOLVED = {"pallas_transmit_64mb_gbps", "pallas_transmit_64mb_us"}
+
+
+def test_transmit_op_returns_the_jax_keys_and_runs_the_jax_chain():
+    import jax.numpy as jnp
+
+    from incubator_brpc_tpu.ops import transfer as jax_transfer
+
+    # chains 20 transmits apart (a few ms each on the CPU), so a loaded
+    # host's stall in a short chain cannot hide the marginal time in both
+    # reps, as it hid 2 transmits' in a loaded run
+    kw = dict(mb=1, hi=24, lo=4, reps=2)
+    got = port_bench.bench_transmit_op(**kw, device=CPU)
+    assert set(got) == _TRANSMIT_RESOLVED, got
+    assert got["pallas_transmit_64mb_us"] > 0, got
+    assert _holds_the_benchs_rate(got["pallas_transmit_64mb_gbps"], kw["mb"],
+                                  got["pallas_transmit_64mb_us"]), got
+    # the chain: each transmit copies the previous output and adds its
+    # checksum to the sum; the JAX chain is bench.py:586-594's loop body
+    rows = (kw["mb"] << 20) // (2048 * 4)
+    x = np.random.RandomState(20).standard_normal((rows, 2048)).astype(np.float32)
+    tol = 1e-5 * float(np.abs(x).sum())  # a checksum's limit, a transmit
+    y, s = torch.from_numpy(x), torch.zeros((), dtype=torch.float32)
+    jy, js = jnp.asarray(x), jnp.float32(0.0)
+    iters = 4
+    for k in range(1, iters + 1):
+        y, s = port_bench.transmit_chain(y, s, 1)
+        jy, csum = jax_transfer.device_copy_with_checksum(jy, interpret=True)
+        js = js + csum
+        np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+        assert abs(float(s) - float(js)) <= k * tol, (k, float(s), float(js))
+    whole = port_bench.transmit_chain(torch.from_numpy(x), torch.zeros(()), iters)
+    assert torch.equal(whole[0], y) and float(whole[1]) == float(s)
+    fold = port_bench.transmit_fold(y, s)
+    assert float(fold) == float(jy[0, 0] + jy[-1, -1] + 0.0 * js)
 
 
 def test_batched_device_op_structure_guard(jax_engine):

@@ -650,7 +650,8 @@ COPIED = {
 # comments at JAX :5-6, :39, :284, :308 reworded).
 # metrics/window.py: a windowed Maxer/Miner counts the value recorded since
 # the sampler's last tick, read before the ticks' samples so that a tick
-# between the two reads cannot hide it; client/naming_service.py: a naming thread
+# between the two reads cannot hide it, and the tick's reset and append and
+# the samples' read share the sampler's lock; client/naming_service.py: a naming thread
 # signals its first server list, and a periodic service that fails its first
 # lookup delivers an empty one (tests/test_torch_repairs.py).
 # client/combo.py: ShardRoutedChannel.call_many's per-call fallback (a shard
@@ -660,7 +661,10 @@ COPIED = {
 # :165, :779 reworded).  metrics/latency_recorder.py: stats() reads count,
 # average and percentiles after one fold of the batched writes (sharing
 # latency()'s window average), and mergeable_snapshot() reads its state
-# after one fold instead of four;
+# after one fold instead of four; a tick and a read of the window (buckets,
+# ticked sums, live sum) share the recorder's _window_lock, and Percentile
+# keeps a running total of its ring under its own lock, so bucket_totals()
+# is one pass and neither read loses the live second to a tick;
 # observability/latency_breakdown.py: the /metrics family and the
 # /latency_breakdown snapshot read each recorder through stats(), one fold a
 # recorder a page instead of five (tests/test_torch_repairs.py).
@@ -690,7 +694,7 @@ DIVERGED = {
                           ('delete', 340, 342, 376, 376), ('replace', 493, 496, 527, 528), ('replace', 521, 524, 553, 554), ('replace', 720, 723, 750, 751),
                           ('replace', 789, 792, 817, 818)],
     "tools/rpc_replay.py": [("insert", 55, 55, 55, 56)],
-    "metrics/window.py": [("insert", 108, 108, 108, 113), ("insert", 111, 111, 116, 118)],
+    "metrics/window.py": [("replace", 104, 105, 104, 106), ("replace", 108, 111, 109, 123)],
     "client/naming_service.py": [("insert", 84, 84, 84, 90), ("insert", 173, 173, 179, 180),
                                  ("insert", 191, 191, 198, 199), ("insert", 207, 207, 215, 220)],
     "client/ring.py": [("replace", 4, 6, 4, 6), ("replace", 38, 39, 38, 39), ("insert", 139, 139, 139, 156),
@@ -700,9 +704,14 @@ DIVERGED = {
     "client/combo.py": [("replace", 14, 15, 14, 15), ("replace", 164, 165, 164, 165),
                         ("replace", 778, 779, 778, 779), ("insert", 969, 969, 969, 975),
                         ("replace", 970, 972, 976, 978)],
-    "metrics/latency_recorder.py": [("insert", 374, 374, 374, 377), ("insert", 388, 388, 391, 405),
-                                    ("insert", 413, 413, 430, 432), ("replace", 414, 415, 433, 434),
-                                    ("replace", 417, 419, 436, 438)],
+    "metrics/latency_recorder.py": [("insert", 16, 16, 16, 17), ("replace", 138, 139, 139, 142),
+                                    ("insert", 145, 145, 148, 149), ("insert", 171, 171, 175, 178),
+                                    ("replace", 172, 173, 179, 180), ("replace", 174, 175, 181, 187),
+                                    ("delete", 179, 180, 191, 191), ("replace", 181, 188, 192, 193),
+                                    ("insert", 204, 204, 209, 213), ("replace", 374, 377, 383, 399),
+                                    ("replace", 378, 379, 400, 401), ("insert", 388, 388, 410, 424),
+                                    ("replace", 408, 413, 444, 447), ("replace", 414, 415, 448, 449),
+                                    ("replace", 417, 419, 451, 453), ("replace", 461, 464, 495, 500)],
     "observability/latency_breakdown.py": [("replace", 100, 101, 100, 101),
                                            ("replace", 105, 109, 105, 109),
                                            ("replace", 188, 196, 188, 191),

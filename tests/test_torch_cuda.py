@@ -592,3 +592,36 @@ def test_transfer_guard_refuses_a_seeded_pull_of_a_cuda_tensor(cuda_device, tmp_
     assert out["hidden"] is True and "sync" in kinds, out
     assert out["hidden_thread"] is True, out
     assert sum(k == "sync" for k in kinds) >= 2, out
+
+
+def test_queued_window_times_a_transmit_chain_on_the_card(cuda_device):
+    """tools/_device_time.queued_ms on a short chain of bench_transmit_op's
+    transmits: the window's device time is at least the transmits' HBM
+    bound (a window that closed early would read under it), the chain's
+    output and sum are the plain chain's, and a window the host cannot
+    fill (a sleep of a cycle or two) is refused once its tries are out."""
+    from incubator_brpc_tpu_torch.tools import _device_time
+    from incubator_brpc_tpu_torch.tools import bench
+
+    x = torch.randn((8192, 2048), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+    s0 = torch.zeros((), dtype=torch.float32, device=cuda_device)
+    ms, (y, s), cycles = _device_time.queued_ms(lambda: bench.transmit_chain(x, s0, 8))
+    assert cycles >= _device_time.SLEEP_CYCLES
+    assert ms >= 8 * 2 * x.nbytes / 3.35e12 * 1e3, ms
+    assert torch.equal(y, x)
+    plain = 8 * x.double().sum().item()
+    assert abs(s.item() - plain) <= 8 * 1e-5 * x.abs().double().sum().item()
+    with pytest.raises(RuntimeError, match="slower than the card slept"):
+        _device_time.queued_ms(lambda: bench.transmit_chain(x, s0, 8), cycles=1, tries=2)
+
+
+def test_transmit_op_reads_the_cards_time(cuda_device):
+    """bench_transmit_op at its 64 MB frame with short chains: the JAX
+    bench's keys, and a time a transmit at or above the HBM bound of one
+    64 MB read and write (0.0401 ms)."""
+    from incubator_brpc_tpu_torch.tools import bench
+
+    got = bench.bench_transmit_op(hi=24, lo=8, reps=2)
+    assert set(got) == {"pallas_transmit_64mb_gbps", "pallas_transmit_64mb_us"}, got
+    assert got["pallas_transmit_64mb_us"] >= 2 * (64 << 20) / 3.35e12 * 1e6, got

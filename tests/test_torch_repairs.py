@@ -41,6 +41,22 @@ a recorder, and prints the same values.  ``mergeable_snapshot()`` (the state
 ``/cluster/export`` sends) folds once too, where the JAX package folds four
 times, and exports the same state.
 
+``metrics/latency_recorder.py``, ``metrics/window.py``: a read of a window
+sees a tick whole.  The 1 Hz tick moves a recorder's live second into its
+window in two steps (the buckets into ``Percentile``'s ring, the sum into
+``_win_sum``), and in the JAX package each step runs partly outside the lock
+that guards the live value: ``bucket_totals()`` copies the ring and then
+reads the live buckets, ``mergeable_snapshot()`` copies ``_win_sum`` and
+then reads the live sum, so a tick between the two reads drops the live
+second (five samples in the ring and seven live read 12, then 5, then 12).
+The port's tick and its readers share the recorder's ``_window_lock``, and
+``Percentile`` keeps a running total of its ring under its own lock, so
+``bucket_totals()`` is one pass over the buckets.  The windowed extremum's
+tick resets the reducer and appends the value under the sampler's lock, and
+its read of the samples takes that lock: a read between the reset and the
+append found neither.  Here the ticks are forced between the reads, and a
+tick loop runs beside four readers.
+
 ``transport/acceptor.py``: a server counts a connection from its accept on.
 The acceptor adds a new connection to its set only after ``Socket.create``
 returns, and ``Socket.create`` has already handed the socket to the event
@@ -66,19 +82,21 @@ about one loaded run in 200, in both packages).  The port's stream keeps the
 write.  Here the object is recycled and reused on purpose.
 """
 
+import sys
 import threading
 import time
 
 import numpy as np
+import pytest
 import torch
 
 from incubator_brpc_tpu_torch.client import naming_service
 from incubator_brpc_tpu_torch.client.channel import Channel, ChannelOptions
 from incubator_brpc_tpu_torch.client.combo import ShardRoutedChannel
 from incubator_brpc_tpu_torch.client.controller import Controller
-from incubator_brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder
+from incubator_brpc_tpu_torch.metrics.latency_recorder import LatencyRecorder, Percentile
 from incubator_brpc_tpu_torch.metrics.reducer import Maxer, Miner
-from incubator_brpc_tpu_torch.metrics.window import Window
+from incubator_brpc_tpu_torch.metrics.window import Window, _sampler_thread
 from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
 from incubator_brpc_tpu_torch.models.parameter_server import PsService, ps_stub
 from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
@@ -306,6 +324,190 @@ def test_phase_stats_print_the_reference_values_for_a_seeded_recorder():
         assert rec.stats((0.5, 0.9, 0.99)) == (
             rec.count(), rec.latency(),
             [rec.latency_percentile(r) for r in (0.5, 0.9, 0.99)])
+
+
+def _unsampled(rec: LatencyRecorder) -> LatencyRecorder:
+    """rec with its ticks left to the test: off the 1 Hz sampler thread."""
+    _sampler_thread.remove(rec._psampler)
+    return rec
+
+
+class _TickOnEnter:
+    """A lock that runs ``tick`` on another thread the first time the
+    reader thread enters it, and lets it run for up to 0.2 s first (it
+    finishes unless the reader holds a lock it needs)."""
+
+    def __init__(self, lock, tick):
+        self._lock, self._tick, self.ticks = lock, tick, []
+        self._reader = threading.current_thread()
+
+    def __enter__(self):
+        if not self.ticks and threading.current_thread() is self._reader:
+            self.ticks.append(_tick_meanwhile(self._tick))
+        return self._lock.__enter__()
+
+    def __exit__(self, *exc):
+        return self._lock.__exit__(*exc)
+
+
+def _tick_meanwhile(tick) -> threading.Thread:
+    t = threading.Thread(target=tick)
+    t.start()
+    t.join(0.2)
+    return t
+
+
+def test_a_tick_between_bucket_totals_reads_loses_no_sample():
+    p = Percentile(10)
+    for us in range(5):
+        p.update(us)
+    p.take_sample()  # five samples in the ring
+    for us in range(100, 107):
+        p.update(us)  # seven in the second under way
+    assert sum(p.bucket_totals()) == 12
+    hook = p._lock = _TickOnEnter(p._lock, p.take_sample)
+    assert sum(p.bucket_totals()) == 12
+    hook.ticks[0].join(5)
+    assert len(p._ring) == 2 and sum(p.bucket_totals()) == 12
+
+
+_RECORDER_READS = {
+    "latency": lambda rec: rec.latency(),
+    "stats": lambda rec: rec.stats((0.5, 0.99)),
+    # qps is a rate over the ticks: it moves with a tick by design
+    "mergeable_snapshot": lambda rec: {k: v for k, v in rec.mergeable_snapshot().items()
+                                       if k != "qps"},
+}
+
+
+# with ticks in the window, latency() and stats() average the ticks' sums
+# alone (in both packages), so only the state export reads the live sum then
+@pytest.mark.parametrize("read, ticks_before", [
+    ("latency", 0), ("stats", 0), ("mergeable_snapshot", 0), ("mergeable_snapshot", 3)])
+def test_a_tick_between_a_recorders_window_reads_loses_no_sample(read, ticks_before):
+    """The tick lands where the JAX package reads the live sum, after its
+    read of the ticks' sums (and of the buckets): the value read is the
+    window before the tick or after it, never a window without the live
+    second."""
+    rng = np.random.RandomState(17)
+    rec = _unsampled(LatencyRecorder())
+    for _ in range(ticks_before):
+        for us in rng.randint(1, 5000, 5):
+            rec.update(int(us))
+        rec._psampler.take_sample()
+    for us in rng.randint(1, 5000, 7):
+        rec.update(int(us))
+    reader = _RECORDER_READS[read]
+    before = reader(rec)
+    ticks = []
+
+    def tick_then(orig):
+        def hooked():
+            if not ticks:
+                ticks.append(_tick_meanwhile(rec._psampler.take_sample))
+            return orig()
+        return hooked
+
+    live = rec._latency
+    live.sum_num, live.get_value = tick_then(live.sum_num), tick_then(live.get_value)
+    got = reader(rec)
+    ticks[0].join(5)
+    del live.sum_num, live.get_value
+    after = reader(rec)
+    assert got in (before, after), (got, before, after)
+    snap = rec.mergeable_snapshot()
+    assert sum(snap["buckets"].values()) == snap["latency_num"] == 5 * ticks_before + 7
+
+
+def test_the_running_window_total_is_the_sum_of_the_ring():
+    rng = np.random.RandomState(18)
+    p = Percentile(4)
+    for tick in range(15):  # evictions from the fifth tick on
+        for us in rng.lognormal(5, 2, rng.randint(0, 40)).astype(np.int64):
+            p.update(int(us))
+        live = list(p._buckets)
+        p.take_sample()
+        assert len(p._ring) == min(tick + 1, 4)
+        assert p._window == [sum(col) for col in zip(*p._ring)]
+        assert p.bucket_totals() == p._window
+        p.update(3)
+        assert p.bucket_totals() == [w + (i == 3) for i, w in enumerate(p._window)]
+        p._buckets[3] -= 1
+        assert p._ring[-1] == live
+
+
+@pytest.mark.parametrize("ticks_before", [0, 1])
+def test_an_extremum_read_between_a_ticks_reset_and_append_sees_the_value(ticks_before):
+    hi = Maxer()
+    w = Window(hi, 10)
+    _sampler_thread.remove(w._sampler)
+    for _ in range(ticks_before):
+        w._sampler.take_sample()
+    hi << 1000
+    reset, seen, readers = hi.reset, [], []
+
+    def reset_then_read():
+        v = reset()
+        readers.append(threading.Thread(target=lambda: seen.append(w.get_value())))
+        readers[0].start()
+        readers[0].join(0.2)  # before the tick appends what it reset
+        return v
+
+    hi.reset = reset_then_read
+    w._sampler.take_sample()
+    readers[0].join(5)
+    assert seen == [1000] and w.get_value() == 1000
+
+
+def test_window_reads_beside_a_tick_loop_are_never_torn():
+    """One thread writes and ticks a recorder for 2.5 s, four read its
+    exported window.  Writes of values under 16 us land in the bucket of
+    their value, so a whole window has as many bucket counts as writes
+    and its latency sum is the counts weighted by their bucket.  The test's
+    own locks keep writes out of a read (each reader holds its own, the
+    writer all four), never ticks."""
+    rec = _unsampled(LatencyRecorder(window_size=4))
+    stop, torn, reads, ticks = threading.Event(), [], [0] * 4, [0]
+    held = [threading.Lock() for _ in reads]
+
+    def ticker():
+        rng = np.random.RandomState(19)
+        while not stop.is_set():
+            for lock in held:
+                lock.acquire()
+            for us in rng.randint(0, 16, rng.randint(1, 9)):
+                rec.update(int(us))
+            for lock in held:
+                lock.release()
+            for _ in range(3):  # the later ticks evict a second apiece
+                rec._psampler.take_sample()
+                ticks[0] += 1
+
+    def reader(k):
+        while not stop.is_set():
+            with held[k]:
+                snap = rec.mergeable_snapshot()
+            counts = {int(i): c for i, c in snap["buckets"].items()}
+            reads[k] += 1
+            time.sleep(1e-4)  # the writer takes the readers' locks meanwhile
+            if (sum(counts.values()) != snap["latency_num"]
+                    or sum(i * c for i, c in counts.items()) != snap["latency_sum"]):
+                torn.append(snap)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)  # hand the GIL over between the reads
+    threads = [threading.Thread(target=ticker)]
+    threads += [threading.Thread(target=reader, args=(k,)) for k in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(2.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(10)
+        sys.setswitchinterval(switch)
+    assert min(reads) > 0 and ticks[0] > 100 and not torn, (reads, ticks, torn[:2])
 
 
 def test_a_connection_counts_before_its_first_request_is_handled(monkeypatch):
