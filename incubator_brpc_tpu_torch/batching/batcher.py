@@ -205,6 +205,12 @@ class Batcher:
         self.shed = Adder(0).expose(f"rpc_batch_shed_{safe}")
         self.batches = 0
         self.rows = 0
+        # sum over every live row flushed of (its batch taken off the
+        # queue - the row's enqueue), monotonic ns: the batcher's wait
+        self.wait_ns = 0
+        self._wait_var = PassiveStatus(lambda: self.wait_ns).expose(
+            f"rpc_batch_wait_ns_{safe}"
+        )
         self.max_batch_seen = 0
         self._recent: deque = deque(maxlen=64)
 
@@ -272,7 +278,7 @@ class Batcher:
                        reason_key="queue_full")
             return True
         if flush_rows is not None:
-            self._dispatch(flush_rows, inline_ok=True)
+            self._dispatch(flush_rows, inline_ok=True, taken_ns=now)
         elif arm_due:
             self._arm_timer(arm_due)
         return True
@@ -327,7 +333,7 @@ class Batcher:
                        "batch queue full (max_queue_rows; retry elsewhere)",
                        reason_key="queue_full")
         if flush_rows is not None:
-            self._dispatch(flush_rows, inline_ok=True)
+            self._dispatch(flush_rows, inline_ok=True, taken_ns=now)
         elif arm_due:
             self._arm_timer(arm_due)
         return True
@@ -409,20 +415,22 @@ class Batcher:
                 self._in_flight = True
         if rows:
             # never run user code on the process-wide timer thread
-            self._dispatch(rows, inline_ok=False)
+            self._dispatch(rows, inline_ok=False, taken_ns=now)
         else:
             self._arm_timer(due)
 
-    def _dispatch(self, rows: List[_Row], inline_ok: bool) -> None:
+    def _dispatch(self, rows: List[_Row], inline_ok: bool, taken_ns: int) -> None:
         if self._inline and inline_ok:
-            self._flush(rows)
+            self._flush(rows, taken_ns)
             return
         from incubator_brpc_tpu_torch.runtime import scheduler
 
-        scheduler.spawn(self._flush, rows)
+        scheduler.spawn(self._flush, rows, taken_ns)
 
     # ---- execution ---------------------------------------------------------
-    def _flush(self, rows: List[_Row]) -> None:
+    def _flush(self, rows: List[_Row], taken_ns: int = 0) -> None:
+        """Run one batch.  ``taken_ns`` (monotonic) is when its rows left
+        the queue; 0 = now (stop()'s drain)."""
         if _chaos.armed:
             spec = _chaos.check("batch.flush", method=self.full_name)
             if spec is not None:
@@ -439,6 +447,7 @@ class Batcher:
                     self._finish_window()
                     return
         now = _time.monotonic_ns()
+        taken_ns = taken_ns or now
         live: List[_Row] = []
         dead: List[_Row] = []
         cancelled: List[_Row] = []
@@ -474,17 +483,22 @@ class Batcher:
             self._recent.append(n)
         self.batches += 1
         self.rows += n
+        self.wait_ns += taken_ns * n - sum(r.enqueue_ns for r in live)
         if n > self.max_batch_seen:
             self.max_batch_seen = n
         ctx = BatchContext(self.full_name, n, pad_to, self, self.policy)
         wall_us = _time.time_ns() // 1000
+        flush_us = wall_us - (_time.monotonic_ns() - taken_ns) // 1000
         first_span = None
         for r in live:
             span = getattr(r.controller, "_span", None)
             if span is not None:
-                # per-row rpcz: callback entry is the fused execution's
-                # start; the batch shape rides as an annotation so
-                # /rpcz shows size / padding waste / queue wait per row
+                # per-row rpcz: the batch left the queue (the wall clock
+                # of taken_ns), then callback entry is the fused
+                # execution's start; the batch shape rides as an
+                # annotation so /rpcz shows size / padding waste / queue
+                # wait per row
+                span.batch_flush_us = flush_us
                 span.callback_start_us = wall_us
                 span.annotate(
                     f"batch size={n} pad_fraction={ctx.pad_fraction:.2f} "
@@ -536,22 +550,23 @@ class Batcher:
     def _next_window_locked_step(self):
         """One completion step: either take the next ready window
         (chaining, _in_flight stays True) or release the method and
-        report the timer deadline to re-arm.  Returns (rows, arm_due)."""
+        report the timer deadline to re-arm.  Returns (rows, arm_due,
+        the monotonic ns the rows were taken at)."""
         with self._lock:
             if self._stopped:
                 # stop() is the sole drainer of whatever remains; the
                 # chain just releases the method so it can proceed
                 self._in_flight = False
-                return None, 0
+                return None, 0, 0
             now = _time.monotonic_ns()
             if self._pending and (
                 len(self._pending) >= self.policy.max_batch_size
                 or self._due_ns <= now
             ):
                 # _in_flight stays True: back-to-back fused executions
-                return self._take_pending_locked(), 0
+                return self._take_pending_locked(), 0, now
             self._in_flight = False
-            return None, self._due_ns if self._pending else 0
+            return None, self._due_ns if self._pending else 0, 0
 
     def _finish_window(self) -> None:
         """The in-flight execution (or a fully-shed window) finished:
@@ -568,9 +583,9 @@ class Batcher:
         if not self._inline:
             # non-inline chaining hops through scheduler.spawn: each
             # _flush runs as its own task, no recursion possible
-            rows, arm_due = self._next_window_locked_step()
+            rows, arm_due, taken_ns = self._next_window_locked_step()
             if rows is not None:
-                self._dispatch(rows, inline_ok=True)
+                self._dispatch(rows, inline_ok=True, taken_ns=taken_ns)
             elif arm_due:
                 self._arm_timer(arm_due)
             return
@@ -581,13 +596,13 @@ class Batcher:
         _tls.draining = tok
         try:
             while True:
-                rows, arm_due = self._next_window_locked_step()
+                rows, arm_due, taken_ns = self._next_window_locked_step()
                 if rows is None:
                     if arm_due:
                         self._arm_timer(arm_due)
                     return
                 tok[1] = False
-                self._flush(rows)
+                self._flush(rows, taken_ns)
                 if not tok[1]:
                     # async handler: done() hasn't fired yet — its own
                     # completion (on another thread) continues the chain
@@ -694,6 +709,7 @@ class Batcher:
             "occupancy": round(self.occupancy(), 4),
             "batches": self.batches,
             "rows": self.rows,
+            "wait_ns": self.wait_ns,
             "shed": self.shed.get_value(),
             "max_batch_seen": self.max_batch_seen,
             "service_ema_us": round(self._service_ema_us, 1),
@@ -742,5 +758,6 @@ class Batcher:
         self.batch_size_rec.hide()
         self._occ_var.hide()
         self.shed.hide()
+        self._wait_var.hide()
         if self._pad_freelist is not None:
             self._pad_freelist.clear()

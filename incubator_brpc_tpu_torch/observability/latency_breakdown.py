@@ -131,7 +131,8 @@ def mergeable_snapshot() -> Dict[str, Dict[str, dict]]:
 _PHASE_ORDER = {
     p: i
     for i, p in enumerate(
-        ("parse", "queue", "callback", "device", "write", "send")
+        ("parse", "queue", "batch_wait", "dispatch", "callback", "device",
+         "write", "send")
     )
 }
 

@@ -113,13 +113,24 @@ PHASE_FIELDS = (
     # Forward), so /latency_breakdown shows host-vs-device per method
     "device_start_us",
     "device_done_us",
+    # ICI leg: the frame's device segments placed on the destination
+    # (parallel/ici.py IciFabric.send), before delivery
+    "placed_us",
+    # batched server row: its batch left the micro-batcher's queue
+    # (batching/batcher.py Batcher._flush)
+    "batch_flush_us",
 )
 
 # Named deltas derived from the stamps (what /latency_breakdown
-# aggregates): (phase, from_field, to_field).
+# aggregates): (phase, from_field, to_field); a tuple of from-fields
+# takes the first one stamped.  "queue" splits into the micro-batcher's
+# wait and the dispatch to the handler (the whole queue phase on an
+# unbatched method).
 PHASE_DELTAS = (
     ("parse", "received_us", "parse_done_us"),
+    ("batch_wait", "enqueued_us", "batch_flush_us"),
     ("queue", "enqueued_us", "callback_start_us"),
+    ("dispatch", ("batch_flush_us", "enqueued_us"), "callback_start_us"),
     ("callback", "callback_start_us", "callback_done_us"),
     ("device", "device_start_us", "device_done_us"),
     ("write", "callback_done_us", "response_write_us"),
@@ -163,7 +174,11 @@ class Span(Collected):
         # phase fields are intentionally NOT initialised: spans are
         # created per RPC and 7 slot stores per span are measurable on
         # the hot path. Readers go through phase() / phase_deltas(),
-        # which default unset slots to 0.
+        # which default unset slots to 0.  batch_flush_us is the one
+        # exception: set on batched rows alone, phase_deltas() reads it
+        # on every span, and an unset slot's read costs the collector
+        # more than this store costs the call
+        self.batch_flush_us = 0
 
     def phase(self, field: str) -> int:
         """Phase stamp value; 0 when never reached (unset slot)."""
@@ -318,10 +333,23 @@ class Span(Collected):
     def phase_deltas(self) -> List:
         """Computable (phase, delta_us) pairs in pipeline order."""
         out = []
+        last_to = b = None
         for name, frm, to in PHASE_DELTAS:
-            a = getattr(self, frm, 0)
-            b = getattr(self, to, 0)
-            if a and b and b >= a:
+            # the to-stamp first, once for neighbours that share it: most
+            # are unset on a client or ICI span, and the read of an unset
+            # slot is the fold's dearest step
+            if to != last_to:
+                last_to, b = to, getattr(self, to, 0)
+            if not b:
+                continue
+            if frm.__class__ is tuple:
+                for f in frm:
+                    a = getattr(self, f, 0)
+                    if a:
+                        break
+            else:
+                a = getattr(self, frm, 0)
+            if a and b >= a:
                 out.append((name, b - a))
         return out
 

@@ -560,6 +560,8 @@ class IciFabric:
                     log_error("ici send %s->%s failed: %r", src, dst, e)
                     return errors.EINTERNAL
                 raise
+            if leg is not None:
+                leg.placed_us = _time.time_ns() // 1000
             if not _local_only:
                 # bridged inbound frames (_local_only) are RECEIVED
                 # traffic; counting them here would inflate the

@@ -323,6 +323,9 @@ class TaskControl:
     def steals_total(self) -> int:
         return sum(g.steals for g in self._groups)
 
+    def runs_total(self) -> int:
+        return sum(g.runs for g in list(self._groups))
+
     def runqueue_depth(self) -> int:
         return sum(len(g.rq) for g in self._groups) + len(self._remote_q)
 
@@ -360,6 +363,9 @@ def get_task_control() -> TaskControl:
         with _default_lock:
             if _default_control is None:
                 _default_control = TaskControl()
+                from incubator_brpc_tpu_torch.metrics.passive_status import PassiveStatus
+
+                PassiveStatus(handoffs_total).expose("runtime_handoffs")
     return _default_control
 
 
@@ -369,6 +375,17 @@ def spawn(fn: Callable, *args) -> Task:
 
 def spawn_urgent(fn: Callable, *args) -> Task:
     return get_task_control().spawn(fn, *args, urgent=True)
+
+
+def handoffs_total() -> int:
+    """Tasks begun on a thread other than the one that queued them, so
+    far: every task a runtime worker ran (ExecutionQueue consumers
+    included; ``execute_or_inline`` runs done in place are not tasks)
+    and every timer the default timer thread fired."""
+    from incubator_brpc_tpu_torch.runtime.timer_thread import fired_total
+
+    control = _default_control
+    return (control.runs_total() if control is not None else 0) + fired_total()
 
 
 def in_worker() -> bool:

@@ -28,6 +28,9 @@ class TimerThread:
         self._cancelled: set = set()
         self._cond = threading.Condition()
         self._stopped = False
+        # timers run so far: each is a handoff to this thread (a plain
+        # int, bumped by this thread alone)
+        self.fired = 0
         self._thread = threading.Thread(target=self._run, daemon=True, name=name)
         self._thread.start()
 
@@ -76,6 +79,7 @@ class TimerThread:
                     self._cond.wait(timeout)
                     continue
             # run expired timer outside the lock
+            self.fired += 1
             try:
                 fn(*args)
             except Exception as e:  # noqa: BLE001
@@ -90,6 +94,11 @@ class TimerThread:
 
 _default: Optional[TimerThread] = None
 _default_lock = threading.Lock()
+
+
+def fired_total() -> int:
+    """Timers the default timer thread has run (0 before it exists)."""
+    return _default.fired if _default is not None else 0
 
 
 def get_timer_thread() -> TimerThread:

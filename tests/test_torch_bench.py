@@ -353,7 +353,8 @@ def test_ring_window_hits_micro_batcher_smoke(jax_engine):
             srv.stop()
             ch.close()
     (jmax, jdesc), (pmax, pdesc) = seen.values()
-    assert set(pdesc) == set(jdesc)
+    # the port's batcher also reports its rows' queue wait
+    assert set(pdesc) == set(jdesc) | {"wait_ns"}
     assert jmax >= w // 2 and pmax >= w // 2, seen
 
 

@@ -667,7 +667,9 @@ COPIED = {
 # is one pass and neither read loses the live second to a tick;
 # observability/latency_breakdown.py: the /metrics family and the
 # /latency_breakdown snapshot read each recorder through stats(), one fold a
-# recorder a page instead of five (tests/test_torch_repairs.py).
+# recorder a page instead of five (tests/test_torch_repairs.py), and the
+# page orders the queue's batch_wait and dispatch split after it
+# (tests/test_torch_trace_phases.py).
 # transport/acceptor.py: a connection counts from its accept on, while its
 # socket is being created, since the dispatcher can hand its first request to
 # a handler before Socket.create returns (tests/test_torch_repairs.py).
@@ -714,9 +716,10 @@ DIVERGED = {
                                     ("replace", 417, 419, 451, 453), ("replace", 461, 464, 495, 500)],
     "observability/latency_breakdown.py": [("replace", 100, 101, 100, 101),
                                            ("replace", 105, 109, 105, 109),
-                                           ("replace", 188, 196, 188, 191),
-                                           ("replace", 205, 206, 200, 202),
-                                           ("replace", 207, 209, 203, 205)],
+                                           ("replace", 133, 134, 133, 135),
+                                           ("replace", 188, 196, 189, 192),
+                                           ("replace", 205, 206, 201, 203),
+                                           ("replace", 207, 209, 204, 206)],
     "transport/acceptor.py": [("insert", 28, 28, 28, 32), ("replace", 109, 115, 113, 124),
                               ("replace", 116, 119, 125, 130), ("replace", 122, 123, 133, 135)],
     "streaming/stream.py": [("replace", 22, 23, 22, 23), ("insert", 120, 120, 120, 124),
