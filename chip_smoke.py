@@ -45,7 +45,10 @@ file.  Phases, each fatal on failure:
              accumulator (or checksum) of K1 whole frame, K1 chained
              chunks, K1 into a slot, K1 from a random carry, the fused
              chunk path, K2 and K2 into a slot bit-equal to the plain
-             version's, which adds in the kernels' order; copy_blocks
+             version's, which adds in the kernels' order, and the frame
+             checksum that K1 (whole, the last chained chunk, from a
+             carry) and K2 fold in their tail bit-equal to the plain
+             fold of the plain accumulator; copy_blocks
              byte-equal, into its out= buffer or a fresh one.  The shapes
              are every main path's: the echo frame, the PS's W, and the
              cache and stream paths' lane views (a 1 MiB value as (256,
@@ -236,7 +239,7 @@ file.  Phases, each fatal on failure:
              counts (sharded executions == merges == batches, window
              crossings, keys moved, prefill once a session, ...); then
              main()'s device tail at its 64 MB defaults: bench_transmit_op
-             (a chain of K1, the fold and the scalar add, its launches
+             (a chain of K1, its fold in its tail, and the scalar add, its launches
              queued behind a sleep and timed by CUDA events: the card's
              time a transmit, as the JAX bench's one program gives it),
              the chunk sweep (every pallas row one K2 launch a transmit,
@@ -637,9 +640,13 @@ def phase_kernels(torch, T):
         _, _, chunks = T.chunk_plan_for(x, chunk_bytes)
 
         out_p, acc_p = T.copy_csum_plain(x, None, br)
-        out_w, acc_w = T._copy_csum(x, None, br)
-        acc_c, outs = None, []
+        # the launches asked for the frame checksum fold it in their tail
+        tails = {name: torch.empty((), dtype=torch.float32, device=x.device)
+                 for name in ("K1 tail", "K2 tail", "K1 carry tail")}
+        out_w, acc_w = T._copy_csum(x, None, br, csum=tails["K1 tail"])
+        acc_c, outs, carry_in = None, [], None
         for off, rows in chunks:
+            carry_in = acc_c
             oc, acc_c = T.device_copy_with_checksum_chunk(
                 x[off:off + rows],
                 acc_c if acc_c is not None
@@ -647,14 +654,18 @@ def phase_kernels(torch, T):
                 br,
             )
             outs.append(oc)
+        # the last chunk again, as the launch that ends the frame
+        off, rows = chunks[-1]
+        _, tails["K1 last chunk"] = T.device_copy_with_checksum_last_chunk(
+            x[off:off + rows], carry_in, br)
         slot = torch.empty_like(x)
         out_s, acc_s = T.device_copy_with_checksum_chunk_into(
             x, torch.zeros((1, n), dtype=torch.float32, device=x.device), slot, br
         )
-        out_f, csum_f = T._chunked_copy_csum(x, chunks, br)
+        out_f, csum_f = T.device_copy_with_checksum_chunked(x, chunk_bytes)
         plan = T.staged_plan(x, br)
         sr = plan.stage_rows
-        out_k2, acc_k2 = T._staged_copy_csum(x, br, sr)
+        out_k2, acc_k2 = T._staged_copy_csum(x, br, sr, csum=tails["K2 tail"])
         slot2 = torch.empty_like(x)
         out_k2i, csum_k2i = T.device_copy_with_checksum_dma_into(x, slot2, br, sr)
         torch.cuda.synchronize()
@@ -686,16 +697,20 @@ def phase_kernels(torch, T):
             check(torch.equal(acc, acc_p),
                   f"{name} accumulator not bit-equal to plain ({dtype}{shape}): off by "
                   f"{(acc - acc_p).abs().max().item()}")
-        for name, cs in [("fused", csum_f), ("K2 slot", csum_k2i)]:
+        for name, cs in [("fused", csum_f), ("K2 slot", csum_k2i), ("K1 tail", tails["K1 tail"]),
+                         ("K1 last chunk", tails["K1 last chunk"]),
+                         ("K2 tail", tails["K2 tail"])]:
             check(torch.equal(cs, csum_p), f"{name} checksum not bit-equal to plain ({dtype}{shape})")
         # K1 from a random carry
         carry = torch.randn((1, n), generator=torch.Generator().manual_seed(i)).cuda()
         _, acc_pc = T.copy_csum_plain(x, carry, br)
-        out_kc, acc_kc = T._copy_csum(x, carry, br)
+        out_kc, acc_kc = T._copy_csum(x, carry, br, csum=tails["K1 carry tail"])
         torch.cuda.synchronize()
         check(torch.equal(out_kc, x), f"K1 carry copy differs for {dtype}{shape}")
         check(torch.equal(acc_kc, acc_pc),
               f"K1 carry accumulator not bit-equal to plain ({dtype}{shape})")
+        check(torch.equal(tails["K1 carry tail"], T.fold_checksum(acc_pc)),
+              f"K1 carry tail checksum not bit-equal to plain ({dtype}{shape})")
         if shape == MAIN_SHAPE:
             for key, acc in [("copy_csum_blocks", acc_w), ("copy_csum_staged", acc_k2)]:
                 errs[key] = (acc - acc_p).abs().max().item()
@@ -704,7 +719,9 @@ def phase_kernels(torch, T):
               f"K2 {plan.ntiles} tiles x {sr} rows ok: every mode bit-equal to plain")
     print("[kernels] tolerance: accumulators and checksums of K1 (whole frame, chained, "
           "slot, carry), fused, K2 and K2 slot bit-equal to the plain version, which "
-          "adds in the kernels' order; copies (K1, K2, copy_blocks) byte-equal")
+          "adds in the kernels' order; the checksums folded in K1's (whole, last chunk, "
+          "carry) and K2's tails bit-equal to the plain fold (fold_checksum); copies (K1, "
+          "K2, copy_blocks) byte-equal")
     return errs, main_csum
 
 
@@ -4094,9 +4111,9 @@ def native_ps(torch, ps_summary):
             if batcher is not None:  # each dispatch's (start, end, rows)
                 flush = batcher._flush  # looked up per dispatch
 
-                def timed(rows, _f=flush):
+                def timed(rows, *taken, _f=flush):  # taken: the batch's taken_ns, if given
                     t0 = time.monotonic_ns()
-                    _f(rows)
+                    _f(rows, *taken)
                     flushes.append((t0, time.monotonic_ns(), len(rows)))
 
                 batcher._flush = timed
@@ -5140,7 +5157,7 @@ def phase_bench(torch, T, smi):
     check(full["ici_rpc_ok"] == 2 + 9 * (48 + 8), f"[bench] echoes lost: {full['ici_rpc_ok']}")
     counts = dict(T.launches)
     # the host's time to issue one transmit of the chain bench_transmit_op
-    # runs (K1, the fold, the scalar add), no sync inside, beside K1's
+    # runs (K1 with its fold in its tail, the scalar add), no sync inside, beside K1's
     x = torch.ones(MAIN_SHAPE, dtype=torch.float32, device="cuda")
     s = torch.zeros((), dtype=torch.float32, device="cuda")
     y, n_issue = x, 200
@@ -5168,7 +5185,7 @@ def phase_bench(torch, T, smi):
           f"K1 alone {frame_ms * 1e3:.1f} us a frame as [times] times it, HBM bound "
           f"{bound_us:.1f} us; card: {smi}")
     print(f"[bench] launch queue: behind a sleep, the host issued {queued} transmits "
-          f"({3 * queued} launches) without blocking"
+          f"({2 * queued} launches) without blocking"
           + (f"; transmit {blocked_at} waited for the card" if blocked_at else ""))
     check(op_us >= bound_us, f"[bench] the transmit op reads {op_us} us, under the HBM bound "
                              f"{bound_us:.1f} us: the chain was not timed whole")
@@ -5889,6 +5906,16 @@ def stage_rows_of(T, v, br):
     return T.pallas_stage_rows(v, br)
 
 
+def frame_transmit(T, br):
+    """fn(src, dst): the fused path's transmit of a frame into dst with its
+    checksum, as the tree at hand runs it: one K1 launch folding the
+    checksum in its tail, or, in a tree without that fold, K1 and the
+    fold's launch of its own."""
+    if hasattr(T, "_transmit_blocks"):
+        return lambda s, o: T._transmit_blocks(s, br, out=o)
+    return lambda s, o: T.fold_checksum(T._copy_csum(s, None, br, out=o)[1])
+
+
 def transmit_ms(torch, T, x, w):
     """Device ms per call of each copy+checksum transmit, every kernel
     the call launches included (so a tree whose fold is a launch of its
@@ -5898,7 +5925,8 @@ def transmit_ms(torch, T, x, w):
     ring hits run it, walked over the frame's chunks (the profiler's
     kernel spans); ``frame``, K1 on ``x``, and ``w``, K1 on the PS
     path's W ``w``, each walked over distinct buffers (``cold_pairs``)
-    and run back to back (``queued_ms``); ``staged``, K2 on ``x``, and
+    and run back to back (``queued_ms``); ``frame_csum``, the frame's
+    transmit with its checksum (``frame_transmit``), likewise; ``staged``, K2 on ``x``, and
     ``staged_stack``, K2 on the (DMGET_KEYS, CACHE_VALUE) u8 stack of a
     stacked DMSET, likewise, each with its windows (``*_windows``);
     ``copy_blocks`` and ``copy_``, the plain copy and out.copy_(src) on
@@ -5922,6 +5950,7 @@ def transmit_ms(torch, T, x, w):
         "chunk": device_ms(torch, lambda: chunk_walk(T, x, out, carry, br))
         / (x.shape[0] // CHUNK_ROWS),
         "frame": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, br, out=o), xs)),
+        "frame_csum": queued_ms(torch, walk(frame_transmit(T, br), xs)),
         "w": queued_ms(torch, walk(lambda s, o: T._copy_csum(s, None, w_br, out=o), ws)),
         "staged": statistics.median(staged),
         "staged_windows": staged,
@@ -6000,6 +6029,11 @@ def phase_times(torch, T, errs, totals):
         print(f"[times] copy_csum_staged on the {what}: {ms[key]:.4f} ms median of "
               f"{len(win)} windows ({min(win):.4f}-{max(win):.4f}), bound {bound:.4f} ms, "
               f"{bound / ms[key]:.0%} of it; K1 on the frame {ms['frame']:.4f} ms")
+    # the frame's transmit with its checksum, as the fused path runs it
+    rows[0].update(frame_csum_ms=ms["frame_csum"])
+    print(f"[times] copy_csum_blocks on the frame with its checksum folded in its tail: "
+          f"{ms['frame_csum']:.4f} ms (K1 to the lanes alone {ms['frame']:.4f} ms, bound "
+          f"{rows[0]['bound_ms']:.4f} ms, {rows[0]['bound_ms'] / ms['frame_csum']:.0%} of it)")
     # K1 at the width the PS path gives it: W, (6144, 6144) f32
     w_bound = copy_bound_ms(w.nbytes, w.numel(), PS_DIM)
     rows[0].update(ps_w_ms=ms["w"], ps_w_bound_ms=w_bound, span_ms=ms["frame_span"],

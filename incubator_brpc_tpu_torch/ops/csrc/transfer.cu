@@ -13,7 +13,9 @@
 //
 // The function: copy a lane-aligned (m, n) payload and produce the (1, n)
 // float32 lane accumulator acc = carry + sum over row blocks b (in block
-// order) of the block's column sums.  The frame checksum is sum(acc).
+// order) of the block's column sums.  A launch that ends a frame also
+// writes the frame checksum, the float32 scalar csum = acc's n lanes added
+// in one fixed order (fold_frame below).
 //
 // Bound on the card: the copy reads and writes every byte once, so a frame
 // of B bytes moves 2B through device memory (64 MB → 128 MB, ≥ 38 us at
@@ -43,8 +45,12 @@
 // count (nblocks arrivals) reads the tile's partials through L2
 // (ld.global.cg), adds them onto the carry in block order, writes acc and
 // resets the counter to 0 for the next launch on the stream (K2 does the
-// same a warp's slice of a tile at a time, below).  The counters
-// belong to ops/transfer.py (one zeroed int32 buffer per device and stream).
+// same a warp's slice of a tile at a time, below).  When the launch is
+// asked for the frame checksum, each writer of acc then counts the columns
+// it wrote on one more counter, the frame's; the warp whose count reaches n
+// reads acc through L2 and folds it to csum (fold_frame), so a transmit is
+// one launch, its scalar included.  The counters belong to ops/transfer.py
+// (one zeroed int32 buffer per launch plan: device, stream and shape).
 //
 // K2 and copy_blocks move their bytes on Hopper's bulk-copy engine (the
 // Tensor Memory Accelerator), as the TPU kernels move theirs on the TPU's
@@ -112,6 +118,8 @@ constexpr int G = 8;              // row groups
 constexpr int K1_TW = 64;         // K1's column tile: 16 lanes x 4 columns
 constexpr int K1_THREADS = G * K1_TW / 4;
 constexpr int FOLD_DEPTH = 16;    // partial loads in flight in the fold tail
+constexpr int FRAME_LANES = 128;  // the frame fold's lanes (fold_frame)
+constexpr int FRAME_DEPTH = 8;    // acc rows of loads in flight in the frame fold
 
 // The bulk-copy rings of K2 and copy_blocks (ops/transfer.py mirrors the
 // sizes and the CTAs an SM).  Stages, their bytes, CTAs an SM, store lags
@@ -223,13 +231,73 @@ __device__ __forceinline__ void fold_tile(const float* p, const float* carry, fl
     *acc = a;
 }
 
+// The frame fold, run by one warp: csum = acc[0..n) added in ONE fixed
+// order, which ops/transfer.py's fold_checksum repeats.  FRAME_LANES lanes:
+// lane j adds acc[j], acc[j + 128], acc[j + 256], ... in sequence from
+// 0.0f; then a tree over the lanes: for s = 64, 32, ..., 1, lane j < s adds
+// lane j + s.  Warp lane l stands for lanes l, l + 32, l + 64 and l + 96
+// (v[q] is lane l + 32q), so the tree's first two levels stay in its
+// registers and the last five are shuffles.  n is a multiple of 128; the
+// loads are independent, FRAME_DEPTH rows of them in flight.
+__device__ __forceinline__ void fold_frame(const float* acc, long long n, float* csum) {
+    const int l = threadIdx.x & 31;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    const long long rows = n / FRAME_LANES;
+    long long k = 0;
+    for (; k + FRAME_DEPTH <= rows; k += FRAME_DEPTH) {
+        float w[FRAME_DEPTH][4];
+#pragma unroll
+        for (int i = 0; i < FRAME_DEPTH; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) w[i][q] = __ldcg(acc + (k + i) * FRAME_LANES + q * 32 + l);
+#pragma unroll
+        for (int i = 0; i < FRAME_DEPTH; ++i)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[q] += w[i][q];
+    }
+    for (; k < rows; ++k)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] += __ldcg(acc + k * FRAME_LANES + q * 32 + l);
+    v[0] += v[2];  // s = 64: lanes l and l + 32 take l + 64 and l + 96
+    v[1] += v[3];
+    v[0] += v[1];  // s = 32
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v[0] += __shfl_down_sync(0xffffffffu, v[0], s);
+    if (l == 0) *csum = v[0];
+}
+
+// One warp's arrival on the frame, once the `cols` columns of acc it (or,
+// in K1, its CTA, behind a barrier) wrote are stored: count them on
+// *frame; the warp whose count completes the frame's n columns resets the
+// counter and folds the frame to csum.
+__device__ __forceinline__ void finish_frame(const float* acc, long long n, int cols, int* frame,
+                                             float* csum) {
+    int last = 0;
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+        // release: the barrier orders the acc stores before this fence,
+        // the fence before the arrival
+        __threadfence();
+        const int prev = atomicAdd(frame, cols);
+        last = prev + cols == n;
+        if (last) {
+            *frame = 0;       // every column is in: ready for the next launch
+            __threadfence();  // acquire: the other writers' columns are read after it
+        }
+    }
+    last = __shfl_sync(0xffffffffu, last, 0);
+    if (last) fold_frame(acc, n, csum);
+}
+
 // The tail shared by K1 and K2, run by every thread of the CTA once `red`
 // holds the group sums of row block b, column tile `tile` (tw columns):
 // publish the block's column sums, count the arrival, and when it is the
 // tile's last, fold the tile: acc = carry (or 0) + partial[0..nblocks-1].
+// With csum, the tile's last CTA then arrives on the frame's counter
+// (counters[ntiles]) for its tw columns.
 __device__ __forceinline__ void finish_tile(const float* red, int rows, int tw, long long b, int tile,
-                                            long long n, long long nblocks, float* partial,
-                                            const float* carry, float* acc, int* counters) {
+                                            int ntiles, long long n, long long nblocks, float* partial,
+                                            const float* carry, float* acc, int* counters, float* csum) {
     __shared__ int last;
     const long long c = (long long)tile * tw + threadIdx.x;
     if (threadIdx.x < tw) partial[b * n + c] = block_sum_order(red, threadIdx.x, rows, tw);
@@ -246,8 +314,12 @@ __device__ __forceinline__ void finish_tile(const float* red, int rows, int tw, 
         }
     }
     __syncthreads();
-    if (!last || threadIdx.x >= tw) return;
-    fold_tile(partial + c, carry != nullptr ? carry + c : nullptr, acc + c, n, nblocks);
+    if (!last) return;  // uniform across the CTA
+    if (threadIdx.x < tw)
+        fold_tile(partial + c, carry != nullptr ? carry + c : nullptr, acc + c, n, nblocks);
+    if (csum == nullptr) return;
+    __syncthreads();  // the tile's acc columns, before warp 0's arrival
+    if (threadIdx.x < 32) finish_frame(acc, n, tw, counters + ntiles, csum);
 }
 
 // One round of a K1 thread: rows r = base, base+G, ... (D of them, those
@@ -276,8 +348,8 @@ template <typename T>
 __global__ void __launch_bounds__(K1_THREADS)
 copy_csum_blocks_kernel(const typename T::S* __restrict__ x, typename T::S* __restrict__ out,
                         float* __restrict__ partial, const float* __restrict__ carry,
-                        float* __restrict__ acc, int* __restrict__ counters, long long n, int br,
-                        int ntiles, long long nblocks) {
+                        float* __restrict__ acc, float* __restrict__ csum, int* __restrict__ counters,
+                        long long n, int br, int ntiles, long long nblocks) {
     // rows a thread keeps in flight: its group's whole share of a 256-row
     // block (32), or 16 for 8-byte types, so the loads fit in 128 registers
     constexpr int D = sizeof(typename T::S) == 8 ? 16 : 32;
@@ -299,7 +371,7 @@ copy_csum_blocks_kernel(const typename T::S* __restrict__ x, typename T::S* __re
 #pragma unroll
     for (int i = 0; i < 4; ++i) red[g * K1_TW + l * 4 + i] = s[i];
     __syncthreads();
-    finish_tile(red, br, K1_TW, b, tile, n, nblocks, partial, carry, acc, counters);
+    finish_tile(red, br, K1_TW, b, tile, ntiles, n, nblocks, partial, carry, acc, counters, csum);
 }
 
 // ---- the bulk-copy engine: mbarriers, bulk loads and stores -------------
@@ -490,14 +562,16 @@ __device__ __forceinline__ void consumers_sync() {
 // slice of every block's tile.  One block: acc = 0 + block sum (the fold
 // of one block onto a zero carry).  Else the block sums go to partial, and
 // each warp with columns counts its arrival on counter tile * G + g; the
-// warp completing that count folds its slice in block order.
+// warp completing that count folds its slice in block order.  With csum,
+// the warp that wrote a slice of acc then arrives on the frame's counter
+// (counters[ntiles * G]) for the slice's columns.
 template <int TW>
-__device__ __forceinline__ void finish_item(const float* red, int br, long long b, int tile, long long n,
-                                            long long nblocks, float* partial, float* acc,
-                                            int* counters) {
+__device__ __forceinline__ void finish_item(const float* red, int br, long long b, int tile, int ntiles,
+                                            long long n, long long nblocks, float* partial, float* acc,
+                                            int* counters, float* csum) {
     constexpr int PER = (TW + CONSUMERS - 1) / CONSUMERS;
     const long long col0 = (long long)tile * TW;
-    bool mine = false;
+    int cols = 0;  // this thread's columns of the tile
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
         const int c = threadIdx.x + j * CONSUMERS;
@@ -507,41 +581,45 @@ __device__ __forceinline__ void finish_item(const float* red, int br, long long 
                 acc[col0 + c] = 0.0f + t;
             else
                 partial[b * n + col0 + c] = t;
-            mine = true;
+            ++cols;
         }
     }
-    if (nblocks == 1 || !__any_sync(0xffffffffu, mine)) return;
-    const int slice = tile * G + (threadIdx.x >> 5);
-    int last = 0;
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) {
-        // release: the warp barrier orders its lanes' partial stores
-        // before this fence, the fence before the arrival
-        __threadfence();
-        const int prev = atomicAdd(counters + slice, 1);
-        last = prev == nblocks - 1;
-        if (last) {
-            counters[slice] = 0;  // every arrival is in: ready for the next launch
-            __threadfence();      // acquire: the other CTAs' partials are read after it
+    const int slice_cols = __reduce_add_sync(0xffffffffu, cols);
+    if (slice_cols == 0) return;
+    if (nblocks != 1) {
+        const int slice = tile * G + (threadIdx.x >> 5);
+        int last = 0;
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) {
+            // release: the warp barrier orders its lanes' partial stores
+            // before this fence, the fence before the arrival
+            __threadfence();
+            const int prev = atomicAdd(counters + slice, 1);
+            last = prev == nblocks - 1;
+            if (last) {
+                counters[slice] = 0;  // every arrival is in: ready for the next launch
+                __threadfence();      // acquire: the other CTAs' partials are read after it
+            }
         }
-    }
-    last = __shfl_sync(0xffffffffu, last, 0);
-    __syncwarp();
-    if (!last) return;
+        last = __shfl_sync(0xffffffffu, last, 0);
+        __syncwarp();
+        if (!last) return;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-        const int c = threadIdx.x + j * CONSUMERS;
-        if (c < TW && col0 + c < n)
-            fold_tile(partial + col0 + c, nullptr, acc + col0 + c, n, nblocks);
+        for (int j = 0; j < PER; ++j) {
+            const int c = threadIdx.x + j * CONSUMERS;
+            if (c < TW && col0 + c < n)
+                fold_tile(partial + col0 + c, nullptr, acc + col0 + c, n, nblocks);
+        }
     }
+    if (csum != nullptr) finish_frame(acc, n, slice_cols, counters + (long long)ntiles * G, csum);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(STAGED_THREADS, STAGED_CTAS_PER_SM)
 copy_csum_staged_kernel(const __grid_constant__ CUtensorMap in_map,
                         const __grid_constant__ CUtensorMap out_map, float* __restrict__ partial,
-                        float* __restrict__ acc, int* __restrict__ counters, long long n, int br,
-                        int sr, int ntiles, int nitems) {
+                        float* __restrict__ acc, float* __restrict__ csum, int* __restrict__ counters,
+                        long long n, int br, int sr, int ntiles, int nitems) {
     // sr: rows a stage, whole row groups (or br when br < G), sr * TILE_BYTES <= STAGE_BYTES
     using S = typename T::S;
     constexpr int TW = TILE_BYTES / (int)sizeof(S);  // columns of a tile
@@ -624,23 +702,24 @@ copy_csum_staged_kernel(const __grid_constant__ CUtensorMap in_map,
             for (int i = 0; i < V; ++i) r[g * TW + lane * V + i] = s[i];
             consumers_sync();
             const int item = item_of(k);
-            finish_item<TW>(r, br, item / ntiles, item % ntiles, n, nblocks, partial, acc, counters);
+            finish_item<TW>(r, br, item / ntiles, item % ntiles, ntiles, n, nblocks, partial, acc,
+                            counters, csum);
             buf ^= 1;
         }
     }
 }
 
 template <typename T>
-int launch_blocks(const void* x, void* out, float* partial, const float* carry, float* acc,
+int launch_blocks(const void* x, void* out, float* partial, const float* carry, float* acc, float* csum,
                   int* counters, long long m, long long n, int br, cudaStream_t stream) {
     using S = typename T::S;
-    if (n % K1_TW != 0) return (int)cudaErrorInvalidValue;
+    if (n % K1_TW != 0 || (csum != nullptr && n % FRAME_LANES != 0)) return (int)cudaErrorInvalidValue;
     const long long nblocks = m / br;
     const int ntiles = (int)(n / K1_TW);
     const long long grid = nblocks * ntiles;
     if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
     copy_csum_blocks_kernel<T><<<(unsigned)grid, K1_THREADS, 0, stream>>>(
-        static_cast<const S*>(x), static_cast<S*>(out), partial, carry, acc, counters, n, br,
+        static_cast<const S*>(x), static_cast<S*>(out), partial, carry, acc, csum, counters, n, br,
         ntiles, nblocks);
     return (int)cudaGetLastError();
 }
@@ -688,12 +767,13 @@ int stage_map(CUtensorMap* map, const void* base, long long row_bytes, int br, l
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
-int launch_staged(const void* x, void* out, float* partial, float* acc, int* counters, long long m,
-                  long long n, int br, int sr, int grid, cudaStream_t stream) {
+int launch_staged(const void* x, void* out, float* partial, float* acc, float* csum, int* counters,
+                  long long m, long long n, int br, int sr, int grid, cudaStream_t stream) {
     const long long row_bytes = n * (long long)sizeof(typename T::S);
     const bool whole_groups = sr % G == 0 || (sr == br && br < G);
     if (br <= 0 || m % br != 0 || sr <= 0 || !whole_groups || sr * TILE_BYTES > STAGE_BYTES ||
-        row_bytes % 16 != 0 || grid <= 0 || !aligned16(x) || !aligned16(out))
+        row_bytes % 16 != 0 || grid <= 0 || !aligned16(x) || !aligned16(out) ||
+        (csum != nullptr && n % FRAME_LANES != 0))
         return (int)cudaErrorInvalidValue;
     const long long nblocks = m / br;
     const long long ntiles = (row_bytes + TILE_BYTES - 1) / TILE_BYTES;
@@ -716,7 +796,7 @@ int launch_staged(const void* x, void* out, float* partial, float* acc, int* cou
                              STAGED_SMEM);
     if (e != cudaSuccess) return (int)e;
     copy_csum_staged_kernel<T><<<grid, STAGED_THREADS, STAGED_SMEM, stream>>>(
-        in_map, out_map, partial, acc, counters, n, br, sr, (int)ntiles, (int)(nblocks * ntiles));
+        in_map, out_map, partial, acc, csum, counters, n, br, sr, (int)ntiles, (int)(nblocks * ntiles));
     return (int)cudaGetLastError();
 }
 
@@ -794,25 +874,28 @@ copy_blocks_kernel(const unsigned char* __restrict__ x, unsigned char* __restric
 extern "C" {
 
 // K1: x, out (m, n) of dtype `code`, contiguous; partial (m/br, n) f32
-// scratch; carry (n) f32 or NULL for zeros; acc (n) f32; counters at least
-// n/64 int32, all 0 (left 0).
-int copy_csum_blocks(const void* x, void* out, void* partial, const void* carry, void* acc,
+// scratch; carry (n) f32 or NULL for zeros; acc (n) f32; csum one f32 for
+// the frame checksum, or NULL for none (a chunk that does not end its
+// frame); counters at least n/64 + 1 int32 (the tiles', then the frame's),
+// all 0 (left 0).
+int copy_csum_blocks(const void* x, void* out, void* partial, const void* carry, void* acc, void* csum,
                      void* counters, long long m, long long n, int br, int code, void* stream) {
     DISPATCH_DTYPE(code, launch_blocks<T>(x, out, static_cast<float*>(partial),
                                           static_cast<const float*>(carry), static_cast<float*>(acc),
-                                          static_cast<int*>(counters), m, n, br,
-                                          static_cast<cudaStream_t>(stream)))
+                                          static_cast<float*>(csum), static_cast<int*>(counters), m, n,
+                                          br, static_cast<cudaStream_t>(stream)))
 }
 
 // K2: the same outputs as copy_csum_blocks from a zero carry, one launch of
 // `grid` persistent CTAs staging `sr` rows of a TILE_BYTES-wide tile at a
 // time; x and out 16-byte aligned; counters at least G x the tile count
-// (ceil(row bytes / TILE_BYTES)) int32, all 0 (left 0).
-int copy_csum_staged(const void* x, void* out, void* partial, void* acc, void* counters,
+// (ceil(row bytes / TILE_BYTES)) + 1 int32 (the slices', then the frame's),
+// all 0 (left 0).
+int copy_csum_staged(const void* x, void* out, void* partial, void* acc, void* csum, void* counters,
                      long long m, long long n, int br, int sr, int code, int grid, void* stream) {
     DISPATCH_DTYPE(code, launch_staged<T>(x, out, static_cast<float*>(partial), static_cast<float*>(acc),
-                                          static_cast<int*>(counters), m, n, br, sr, grid,
-                                          static_cast<cudaStream_t>(stream)))
+                                          static_cast<float*>(csum), static_cast<int*>(counters), m, n,
+                                          br, sr, grid, static_cast<cudaStream_t>(stream)))
 }
 
 // device_copy: out = x, nbytes (a multiple of 16) of 16-byte aligned memory,

@@ -21,7 +21,17 @@ The kernels are written by hand for Hopper in ``ops/csrc/transfer.cu``
 
 K1 and K2 fold the per-block column sums onto the carry in their own
 tail (the last CTA to finish a column tile folds it; in K2 the last warp
-to finish its slice of one), so each transmit is one launch.
+to finish its slice of one), and a launch that ends a frame folds the
+lanes on to the frame's checksum scalar there too (the last writer of
+the lane accumulator folds it), so each transmit is one launch.
+
+Every launch is issued from a :class:`LaunchPlan`, built once for a
+(device, stream, shape, dtype, block rows) and kept in the bounded
+:data:`PLANS`: the checked geometry, the dtype's kernel code, the
+chunked transmits' chunk plans and, on the card, the scratch that the
+launches on that stream share.  What stays per call is the copy's
+buffer, the checksum scalar and the cheap checks that refuse a bad
+operand.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain PyTorch version (:func:`copy_csum_plain`), a CUDA tensor launches
@@ -31,19 +41,25 @@ launches in :data:`launches`; the plain version is not counted.
 Checksum contract: the lane accumulator is ``carry + Σ_b colsum(block_b)``
 with the blocks of ``_fit_block_rows`` added in block order, and each
 block's column summed in one fixed order (8 strided row groups, then
-the groups in order).  Every mode (whole frame, chained chunks, slot,
-staged) and the plain version perform the same f32 additions in the
-same order, so they yield the same bits, on the card and on the CPU.
+the groups in order); the frame's checksum is the accumulator's lanes
+added in one fixed order too (:func:`fold_checksum`).  Every mode (whole
+frame, chained chunks, slot, staged) and the plain version perform the
+same f32 additions in the same order, so they yield the same bits, on
+the card and on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from incubator_brpc_tpu_torch.metrics.reducer import Adder
+from incubator_brpc_tpu_torch.observability.profiling import hbm_account
 from incubator_brpc_tpu_torch.utils.segmentation import (
     MIN_CHUNKS,
     plan_row_chunks,
@@ -90,6 +106,9 @@ _COPY_CTAS_PER_SM = 1
 
 # K1's column tile (K1_TW in transfer.cu): one arrival counter per tile
 _K1_TILE = 64
+
+# the frame fold's lanes (FRAME_LANES in transfer.cu; fold_checksum)
+_FRAME_LANES = 128
 
 #: kernel name → launches on CUDA tensors since the last reset
 launches: Dict[str, int] = {
@@ -184,6 +203,28 @@ def copy_csum_plain(
     return out, acc
 
 
+def fold_checksum(carry: torch.Tensor) -> torch.Tensor:
+    """Fold a (1, n) lane accumulator to the frame's checksum scalar, in
+    the order K1's and K2's tails fold it (transfer.cu ``fold_frame``):
+    128 lanes, lane j adding carry[j], carry[j + 128], ... in sequence
+    from 0.0, then a tree over the lanes, lane j < s adding lane j + s
+    for s = 64, 32, ..., 1.  Plain float32 adds, which round alike on
+    the CPU and the card, so both give the kernels' bits.  n must be a
+    multiple of 128, as every lane view's is."""
+    n = carry.numel()
+    if n % _FRAME_LANES:
+        raise ValueError(f"{n} lanes do not fold: not a multiple of {_FRAME_LANES}")
+    rows = carry.reshape(-1, _FRAME_LANES)
+    lanes = torch.zeros(_FRAME_LANES, dtype=torch.float32, device=carry.device)
+    for k in range(rows.shape[0]):
+        lanes = lanes + rows[k]
+    s = _FRAME_LANES // 2
+    while s:
+        lanes = lanes[:s] + lanes[s:2 * s]
+        s //= 2
+    return lanes.reshape(())
+
+
 # ---------------------------------------------------------------------------
 # the Hopper kernels (ops/csrc/transfer.cu)
 # ---------------------------------------------------------------------------
@@ -191,16 +232,14 @@ def copy_csum_plain(
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _sm_counts: Dict[int, int] = {}
-_counters_lock = threading.Lock()
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from transfer.cu."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.copy_csum_blocks.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, p]
+    lib.copy_csum_blocks.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
     lib.copy_csum_blocks.restype = i32
-    lib.copy_csum_staged.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.copy_csum_staged.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
     lib.copy_csum_staged.restype = i32
     lib.copy_blocks.argtypes = [p, p, i64, i32, p]
     lib.copy_blocks.restype = i32
@@ -225,6 +264,23 @@ def _check_rc(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         text = lib.transfer_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({text})")
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _device_guard(index: int):
+    """A context that makes CUDA device ``index`` current, as a launch
+    needs (it goes to the calling thread's current device): the device
+    guard only when another device is current, else nothing."""
+    if torch._C._cuda_getDevice() == index:
+        return _NO_GUARD
+    return torch.cuda.device(index)
+
+
+def _current_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_operand(t: torch.Tensor, what: str, like: torch.Tensor) -> None:
@@ -268,31 +324,10 @@ def _check_lanes(t: torch.Tensor, what: str, like: torch.Tensor) -> None:
         )
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            device
-        ).multi_processor_count
-    return _sm_counts[idx]
-
-
-def _arrival_counters(device: torch.device, stream: int,
-                      ntiles: int) -> torch.Tensor:
-    """The fold tails' per-column-tile arrival counters for launches on
-    ``stream`` of ``device``: int32, zeroed when allocated, and left at 0
-    by every launch (a tile's last CTA resets its counter).  Launches on
-    one stream run in order, so they may share the buffer; a stream of
-    its own keeps two concurrent streams apart.  Grown (anew, zeroed, on
-    the current stream) under a lock to the largest ``ntiles`` asked."""
-    key = (device.index, stream)
-    with _counters_lock:
-        buf = _counters.get(key)
-        if buf is None or buf.numel() < ntiles:
-            buf = _counters[key] = torch.zeros(
-                ntiles, dtype=torch.int32, device=device
-            )
-        return buf
+def _check_scalar(t: torch.Tensor, like: torch.Tensor) -> None:
+    """``t`` must be a float32 scalar beside ``like``: a frame checksum."""
+    if t.dtype != torch.float32 or t.numel() != 1 or t.device != like.device:
+        raise ValueError(f"csum must be a float32 scalar on {like.device}")
 
 
 def _scratch(x, block_rows: int, partial: Optional[torch.Tensor]) -> torch.Tensor:
@@ -312,72 +347,239 @@ def _scratch(x, block_rows: int, partial: Optional[torch.Tensor]) -> torch.Tenso
     return partial
 
 
-def _launch_copy_csum_blocks(x, out, carry: Optional[torch.Tensor],
-                             acc: torch.Tensor, block_rows: int,
+def _sm_count(device: torch.device) -> int:
+    idx = device.index
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            device
+        ).multi_processor_count
+    return _sm_counts[idx]
+
+
+# ---------------------------------------------------------------------------
+# launch plans: what a launch needs, built and checked once a shape
+# ---------------------------------------------------------------------------
+
+#: launch plans kept at once, the least recently used dropped first
+PLAN_KEYS = 16
+
+# HBM heap profiler tag (observability/profiling.py): the plans' scratch
+_PLAN_ACCT = hbm_account("ops.transmit_plans")
+
+
+class LaunchPlan:
+    """K1's and K2's launches on one (device, stream, shape, dtype, block
+    rows), built and checked once (:func:`launch_plan`).
+
+    It holds the lane geometry and the dtype's kernel code, the chunked
+    transmits' chunk plans (:meth:`chunks`) and, on the card, the scratch
+    that every launch through it shares: ``partial`` (the per-block
+    column sums), ``acc`` (the lane accumulator that a launch ending a
+    frame folds through) and the zeroed arrival counters (K1's tiles or
+    K2's slices, then the frame's; every launch leaves them at 0).
+    Launches on one stream run in order, so they may share it; the key's
+    stream keeps two concurrent streams apart.  A CPU plan holds no
+    scratch: the plain version needs none."""
+
+    __slots__ = ("device", "index", "stream", "m", "n", "row_bytes", "block_rows",
+                 "code", "partial", "acc", "counters", "charged", "_chunks")
+
+    def __init__(self, v: torch.Tensor, block_rows: int, index: int, stream: int):
+        self.device = v.device
+        self.index, self.stream = index, stream
+        self.m, self.n = v.shape
+        self.row_bytes = self.n * v.element_size()
+        self.block_rows = block_rows
+        self._chunks: Dict[int, List[Tuple[int, int]]] = {}
+        self.code = self.partial = self.acc = self.counters = None
+        self.charged = 0
+        if index < 0:
+            return
+        self.code = _check_payload(v, block_rows)
+        k2_tiles = -(-self.row_bytes // _TILE_BYTES)
+        self.partial = _scratch(v, block_rows, None)
+        self.acc = torch.empty((1, self.n), dtype=torch.float32, device=self.device)
+        self.counters = torch.zeros(
+            max(self.n // _K1_TILE, k2_tiles * _ROW_GROUPS) + 1,
+            dtype=torch.int32, device=self.device,
+        )
+        self.charged = _PLAN_ACCT.adopt(
+            self.partial.nbytes + self.acc.nbytes + self.counters.nbytes
+        )
+
+    def chunks(self, chunk_bytes: int) -> List[Tuple[int, int]]:
+        """The chunked transmits' (row offset, rows) chunks at
+        ``chunk_bytes`` (:func:`chunk_plan_for`'s), planned once."""
+        got = self._chunks.get(chunk_bytes)
+        if got is None:
+            got = self._chunks[chunk_bytes] = plan_row_chunks(
+                self.m, self.row_bytes, chunk_bytes, self.block_rows
+            )
+        return got
+
+
+class PlanCache:
+    """The launch plans in use, at most ``bound``, the least recently used
+    dropped first (its scratch goes back to the allocator, whose blocks a
+    later launch on the same stream may take).  ``hits`` and ``misses``
+    count the lookups; the fabric exposes them as
+    ``rpc_ici_transmit_plan_hits`` and ``rpc_ici_transmit_plan_misses``."""
+
+    def __init__(self, bound: int = PLAN_KEYS):
+        self.bound = bound
+        self._plans: "OrderedDict[tuple, LaunchPlan]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = Adder(0)
+        self.misses = Adder(0)
+
+    def get(self, key: tuple, v: torch.Tensor, block_rows: int) -> LaunchPlan:
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.move_to_end(key)
+        if plan is not None:
+            self.hits << 1
+            return plan
+        # built outside the lock: its checks raise, its scratch is a launch
+        # on the device
+        built = LaunchPlan(v, block_rows, key[0], key[1])
+        dropped = []
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is None:
+                plan = self._plans[key] = built
+                while len(self._plans) > self.bound:
+                    dropped.append(self._plans.popitem(last=False)[1])
+            else:  # another thread built it first
+                dropped.append(built)
+        for p in dropped:
+            _PLAN_ACCT.release(p.charged)
+        self.misses << 1
+        return plan
+
+    def items(self) -> List[Tuple[tuple, LaunchPlan]]:
+        """(key, plan) of every plan kept, least recently used first."""
+        with self._lock:
+            return list(self._plans.items())
+
+    def clear(self) -> None:
+        with self._lock:
+            plans = list(self._plans.values())
+            self._plans.clear()
+        for p in plans:
+            _PLAN_ACCT.release(p.charged)
+
+
+#: the process's launch plans
+PLANS = PlanCache()
+
+
+def launch_plan(v: torch.Tensor, block_rows: int) -> LaunchPlan:
+    """The plan of K1 and K2 launches on ``v`` (a 2D lane view) in blocks
+    of ``block_rows`` rows, on the current stream of v's device: looked
+    up in :data:`PLANS`, built (and the payload checked) on its key's
+    first launch.  On the card each call refuses a payload that is not
+    contiguous and 16-byte aligned, which its key does not say; any
+    device but the card and the CPU raises."""
+    if v.is_cuda:
+        index = v.get_device()
+        key = (index, _current_stream(index), v.shape, v.dtype, block_rows)
+        plan = PLANS.get(key, v, block_rows)
+        if not v.is_contiguous() or v.data_ptr() % 16:
+            raise ValueError("payload must be contiguous and 16-byte aligned")
+        return plan
+    if v.is_cpu:
+        return PLANS.get((-1, 0, v.shape, v.dtype, block_rows), v, block_rows)
+    raise ValueError(f"no copy+checksum kernel for device {v.device}")
+
+
+def _launch_copy_csum_blocks(plan: LaunchPlan, x, out, carry: Optional[torch.Tensor],
+                             acc: torch.Tensor, csum: Optional[torch.Tensor],
                              partial: Optional[torch.Tensor] = None) -> None:
-    """K1 on the current stream: copy x → out and write acc = carry
-    (zeros when None) + the per-block column sums in block order, the
-    fold being the kernel's tail; ``partial`` is its scratch (see
-    :func:`_scratch`)."""
-    code = _check_payload(x, block_rows)
-    _check_operand(out, "out", x)
-    if carry is not None:
-        _check_lanes(carry, "carry", x)
-    _check_lanes(acc, "acc", x)
+    """K1 through ``plan`` on its stream: copy x → out and write acc =
+    carry (zeros when None) + the per-block column sums in block order
+    and, given ``csum``, the frame's checksum of acc: both folds are the
+    kernel's tail.  ``partial``, when given, is the launch's scratch in
+    place of the plan's (see :func:`_scratch`)."""
+    scratch = plan.partial if partial is None else _scratch(x, plan.block_rows, partial)
     lib = _kernels()
-    m, n = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        partial = _scratch(x, block_rows, partial)
-        counters = _arrival_counters(x.device, stream, n // _K1_TILE)
+    with _device_guard(plan.index):
         rc = lib.copy_csum_blocks(
-            x.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            carry.data_ptr() if carry is not None else None, acc.data_ptr(),
-            counters.data_ptr(), m, n, block_rows, code, stream,
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            None if carry is None else carry.data_ptr(), acc.data_ptr(),
+            None if csum is None else csum.data_ptr(), plan.counters.data_ptr(),
+            plan.m, plan.n, plan.block_rows, plan.code, plan.stream,
         )
     _check_rc(lib, rc, "copy_csum_blocks")
     launches["copy_csum_blocks"] += 1
 
 
-def _launch_copy_csum_staged(x, out, acc: torch.Tensor, block_rows: int,
+def _launch_copy_csum_staged(plan: LaunchPlan, staged: "StagedPlan", x, out,
+                             acc: torch.Tensor, csum: Optional[torch.Tensor],
                              stage_rows: int,
                              partial: Optional[torch.Tensor] = None) -> None:
-    """K2 on the current stream: the same outputs as K1 from a zero
-    carry, from ONE launch of persistent CTAs; ``partial`` as K1's."""
-    code = _check_payload(x, block_rows)
-    _check_operand(out, "out", x)
-    _check_lanes(acc, "acc", x)
-    plan = staged_plan(x, block_rows)
-    _check_stage_rows(block_rows, stage_rows)
+    """K2 through ``plan`` on its stream, its grid from ``staged``: the
+    same outputs as K1 from a zero carry, from ONE launch of persistent
+    CTAs; ``partial`` as K1's."""
+    scratch = plan.partial if partial is None else _scratch(x, plan.block_rows, partial)
     lib = _kernels()
-    m, n = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        partial = _scratch(x, block_rows, partial)
-        counters = _arrival_counters(
-            x.device, stream, plan.ntiles * _ROW_GROUPS
-        )
+    with _device_guard(plan.index):
         rc = lib.copy_csum_staged(
-            x.data_ptr(), out.data_ptr(), partial.data_ptr(), acc.data_ptr(),
-            counters.data_ptr(), m, n, block_rows, stage_rows, code,
-            plan.grid(_sm_count(x.device)), stream,
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            acc.data_ptr(), None if csum is None else csum.data_ptr(),
+            plan.counters.data_ptr(), plan.m, plan.n, plan.block_rows, stage_rows,
+            plan.code, staged.grid(_sm_count(plan.device)), plan.stream,
         )
     _check_rc(lib, rc, "copy_csum_staged")
     launches["copy_csum_staged"] += 1
 
 
-def _copy_csum(x, carry, block_rows: int, out=None, partial=None):
-    """K1 on CUDA, the plain version on the CPU (which has no scratch:
-    ``partial`` is ignored there).  Returns (copy, acc)."""
-    if x.device.type == "cpu":
-        return copy_csum_plain(x, carry, block_rows, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"no copy+checksum kernel for device {x.device}")
+def _out_for(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The copy's buffer: ``out`` once checked, else a fresh one."""
     if out is None:
-        out = torch.empty_like(x)
-    acc = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_copy_csum_blocks(x, out, carry, acc, block_rows, partial)
+        return torch.empty_like(x)
+    _check_operand(out, "out", x)
+    return out
+
+
+def _copy_csum(x, carry, block_rows: int, out=None, partial=None, csum=None):
+    """K1 on CUDA, the plain version on the CPU (which has no scratch:
+    ``partial`` is ignored there).  Returns (copy, acc), acc a fresh
+    (1, n) float32 tensor: a carried chunk's.  Given ``csum`` (a float32
+    scalar beside x) the same launch writes the frame's checksum of acc
+    into it."""
+    plan = launch_plan(x, block_rows)
+    if plan.partial is None:
+        out, acc = copy_csum_plain(x, carry, block_rows, out)
+        if csum is not None:
+            csum.copy_(fold_checksum(acc))
+        return out, acc
+    out = _out_for(x, out)
+    if carry is not None:
+        _check_lanes(carry, "carry", x)
+    if csum is not None:
+        _check_scalar(csum, x)
+    acc = torch.empty((1, plan.n), dtype=torch.float32, device=plan.device)
+    _launch_copy_csum_blocks(plan, x, out, carry, acc, csum, partial)
     return out, acc
+
+
+def _transmit_blocks(x, block_rows: int, carry=None, out=None):
+    """The K1 launch that ends a frame: copy x (into ``out`` when given),
+    fold it onto ``carry`` (zeros when None) through the plan's ``acc``,
+    and fold that to the frame's checksum in the kernel's tail.  Returns
+    (copy, csum), csum a fresh float32 scalar on x's device; the CPU runs
+    the plain version and :func:`fold_checksum`."""
+    plan = launch_plan(x, block_rows)
+    if plan.partial is None:
+        out, acc = copy_csum_plain(x, carry, block_rows, out)
+        return out, fold_checksum(acc)
+    out = _out_for(x, out)
+    if carry is not None:
+        _check_lanes(carry, "carry", x)
+    csum = torch.empty((), dtype=torch.float32, device=plan.device)
+    _launch_copy_csum_blocks(plan, x, out, carry, plan.acc, csum)
+    return out, csum
 
 
 def _launch_copy_blocks(x: torch.Tensor, out: torch.Tensor) -> None:
@@ -386,11 +588,11 @@ def _launch_copy_blocks(x: torch.Tensor, out: torch.Tensor) -> None:
     _check_operand(x, "payload", x)
     _check_operand(out, "out", x)
     lib = _kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    index = x.get_device()
+    with _device_guard(index):
         rc = lib.copy_blocks(
             x.data_ptr(), out.data_ptr(), x.nbytes,
-            _COPY_CTAS_PER_SM * _sm_count(x.device), stream,
+            _COPY_CTAS_PER_SM * _sm_count(x.device), _current_stream(index),
         )
     _check_rc(lib, rc, "copy_blocks")
     launches["copy_blocks"] += 1
@@ -435,18 +637,18 @@ def device_copy(x: torch.Tensor,
 
 def device_copy_with_checksum(x: torch.Tensor, chunk_rows: int = 256):
     """Fused transmit-and-verify of a 2D lane-aligned payload: one pass
-    over device memory copies it and produces the lane checksum.
-    Returns (copy, csum) with csum a device-resident f32 scalar."""
-    m, _ = x.shape
-    out, acc = _copy_csum(x, None, _fit_block_rows(m, chunk_rows))
-    return out, fold_checksum(acc)
+    over device memory copies it and produces the lane checksum, one
+    launch on the card.  Returns (copy, csum) with csum a
+    device-resident f32 scalar."""
+    return _transmit_blocks(x, _fit_block_rows(x.shape[0], chunk_rows))
 
 
 def device_copy_with_checksum_chunk(x: torch.Tensor, carry: torch.Tensor,
                                     block_rows: int):
     """One chunk of a chunked transmit: copy ``x`` and fold its lane
-    sums onto ``carry`` ((1, n) f32).  Returns (copy, new_carry); finish
-    a frame with ``fold_checksum(new_carry)``."""
+    sums onto ``carry`` ((1, n) f32).  Returns (copy, new_carry); end a
+    frame with :func:`device_copy_with_checksum_last_chunk`, or fold the
+    carry with ``fold_checksum(new_carry)``."""
     return _copy_csum(x, carry, block_rows)
 
 
@@ -459,15 +661,22 @@ def device_copy_with_checksum_chunk_into(x: torch.Tensor, carry: torch.Tensor,
     return _copy_csum(x, carry, block_rows, out=slot)
 
 
-def fold_checksum(carry: torch.Tensor) -> torch.Tensor:
-    """Fold a (1, n) lane accumulator to the frame's checksum scalar."""
-    return torch.sum(carry)
+def device_copy_with_checksum_last_chunk(x: torch.Tensor,
+                                         carry: Optional[torch.Tensor],
+                                         block_rows: int,
+                                         slot: Optional[torch.Tensor] = None):
+    """The chunk that ends a chunked transmit: copy ``x`` (into ``slot``
+    when given), fold it onto ``carry`` and the frame's lanes to its
+    checksum, all in one launch.  Returns (copy, csum), csum bit-equal to
+    the whole frame's."""
+    return _transmit_blocks(x, block_rows, carry, out=slot)
 
 
 def chunk_plan_for(arr: torch.Tensor, chunk_bytes: int):
     """(lane_view, block_rows, chunks) the chunked transmit paths use for
-    ``arr`` — fused, pipelined, pallas and the chaos walk all consume
-    THIS plan.  Returns (None, 0, None) when the tensor doesn't tile."""
+    ``arr`` — the pipelined and pallas modes and the chaos walk all
+    consume THIS plan (:meth:`LaunchPlan.chunks` keeps it).  Returns
+    (None, 0, None) when the tensor doesn't tile."""
     v = lanes_view(arr)
     if v is None:
         return None, 0, None
@@ -477,32 +686,21 @@ def chunk_plan_for(arr: torch.Tensor, chunk_bytes: int):
     return v, block_rows, chunks
 
 
-def _chunked_copy_csum(x: torch.Tensor, chunks, block_rows: int):
-    """Fused chunked transmit.  The chunks are consecutive row ranges of
-    one frame, aligned to its blocks, so ONE K1 launch over the frame
-    runs them all: the JAX package's fused program is likewise one
-    dispatch per hop, and on the card one launch of 64 MB takes less
-    device time than eight of 8 MB (PERF.md).  The checksum is the
-    chained chunks' bit for bit (same blocks, same order).  So on the
-    card this is the whole-frame transmit of ``chunk_mode="off"``: the
-    same single K1 launch.  The chunk plan is only checked here; what
-    the fused mode adds is the fabric's pre-dispatch chaos walk over
-    it.  Returns (copy, csum)."""
-    if chunks[0][0] != 0 or sum(rows for _, rows in chunks) != x.shape[0]:
-        raise ValueError(f"chunk plan {chunks} does not cover {x.shape[0]} rows")
-    out, acc = _copy_csum(x, None, block_rows)
-    return out, fold_checksum(acc)
-
-
 def device_copy_with_checksum_chunked(x: torch.Tensor,
                                       chunk_bytes: int = 8 << 20):
     """Chunked copy+checksum over a lane-tileable tensor: ~chunk_bytes
     row chunks aligned to the block layout; the checksum equals
-    ``device_copy_with_checksum(x)[1]`` bit for bit."""
-    v, block_rows, chunks = chunk_plan_for(x, chunk_bytes)
+    ``device_copy_with_checksum(x)[1]`` bit for bit.  The chunks are
+    consecutive row ranges of one frame, aligned to its blocks, so ONE
+    K1 launch over the frame runs them all: the JAX package's fused
+    program is likewise one dispatch per hop, and on the card one launch
+    of 64 MB takes less device time than eight of 8 MB (PERF.md).  So
+    this is the whole-frame transmit; what the fabric's fused mode adds
+    is its pre-dispatch chaos walk over the chunk plan."""
+    v = lanes_view(x)
     if v is None:
         raise ValueError(f"tensor of shape {tuple(x.shape)} does not lane-tile")
-    out, csum = _chunked_copy_csum(v, chunks, block_rows)
+    out, csum = _transmit_blocks(v, _fit_block_rows(v.shape[0]))
     return (out if v is x else out.reshape(x.shape)), csum
 
 
@@ -570,31 +768,52 @@ def _check_stage_rows(block_rows: int, stage_rows: int) -> None:
         )
 
 
+def _staged_plan_of(x, block_rows: int, stage_rows: int):
+    """(launch plan, stage plan) of x, after the staging's checks, which
+    refuse an unaligned view or a bad stage on the CPU too."""
+    plan = launch_plan(x, block_rows)
+    staged = staged_plan(x, block_rows)
+    _check_stage_rows(block_rows, stage_rows)
+    return plan, staged
+
+
 def _staged_copy_csum(x, block_rows: int, stage_rows: int, out=None,
-                      partial=None):
-    """K2 on CUDA, the plain version on the CPU, each after the staging's
-    checks (so an unaligned view or a bad stage is refused on both);
-    ``partial`` as :func:`_copy_csum`'s.  Returns (copy, acc)."""
-    if x.device.type == "cpu":
-        staged_plan(x, block_rows)
-        _check_stage_rows(block_rows, stage_rows)
-        return copy_csum_plain(x, None, block_rows, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"no copy+checksum kernel for device {x.device}")
-    if out is None:
-        out = torch.empty_like(x)
-    acc = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_copy_csum_staged(x, out, acc, block_rows, stage_rows, partial)
+                      partial=None, csum=None):
+    """K2 on CUDA, the plain version on the CPU; ``partial`` and ``csum``
+    as :func:`_copy_csum`'s.  Returns (copy, acc)."""
+    plan, staged = _staged_plan_of(x, block_rows, stage_rows)
+    if plan.partial is None:
+        out, acc = copy_csum_plain(x, None, block_rows, out)
+        if csum is not None:
+            csum.copy_(fold_checksum(acc))
+        return out, acc
+    out = _out_for(x, out)
+    if csum is not None:
+        _check_scalar(csum, x)
+    acc = torch.empty((1, plan.n), dtype=torch.float32, device=plan.device)
+    _launch_copy_csum_staged(plan, staged, x, out, acc, csum, stage_rows, partial)
     return out, acc
+
+
+def _transmit_staged(x, block_rows: int, stage_rows: int, out=None):
+    """K2 ending a frame, as :func:`_transmit_blocks` K1.  Returns
+    (copy, csum)."""
+    plan, staged = _staged_plan_of(x, block_rows, stage_rows)
+    if plan.partial is None:
+        out, acc = copy_csum_plain(x, None, block_rows, out)
+        return out, fold_checksum(acc)
+    out = _out_for(x, out)
+    csum = torch.empty((), dtype=torch.float32, device=plan.device)
+    _launch_copy_csum_staged(plan, staged, x, out, plan.acc, csum, stage_rows)
+    return out, csum
 
 
 def device_copy_with_checksum_dma(x: torch.Tensor, block_rows: int,
                                   stage_rows: int):
-    """Whole-frame transmit as ONE staged kernel launch (K2, its fold
+    """Whole-frame transmit as ONE staged kernel launch (K2, its folds
     in its tail); the checksum is bit-identical to
     :func:`device_copy_with_checksum`'s on the same device."""
-    out, acc = _staged_copy_csum(x, block_rows, stage_rows)
-    return out, fold_checksum(acc)
+    return _transmit_staged(x, block_rows, stage_rows)
 
 
 def device_copy_with_checksum_dma_into(x: torch.Tensor, slot: torch.Tensor,
@@ -602,8 +821,7 @@ def device_copy_with_checksum_dma_into(x: torch.Tensor, slot: torch.Tensor,
     """:func:`device_copy_with_checksum_dma` writing into a frame-shaped
     ``slot`` (a StagingRing buffer): a ring hit makes the whole-frame
     transmit allocation-free."""
-    out, acc = _staged_copy_csum(x, block_rows, stage_rows, out=slot)
-    return out, fold_checksum(acc)
+    return _transmit_staged(x, block_rows, stage_rows, out=slot)
 
 
 def device_copy_with_checksum_pallas(x: torch.Tensor,
@@ -619,12 +837,7 @@ def device_copy_with_checksum_pallas(x: torch.Tensor,
     if v is None:
         raise ValueError(f"tensor of shape {tuple(x.shape)} does not lane-tile")
     stage_rows = staged_plan(v, block_rows).stage_rows
-    if slot is not None:
-        out, csum = device_copy_with_checksum_dma_into(
-            v, slot, block_rows, stage_rows
-        )
-    else:
-        out, csum = device_copy_with_checksum_dma(v, block_rows, stage_rows)
+    out, csum = _transmit_staged(v, block_rows, stage_rows, out=slot)
     return (out if v is x else out.reshape(x.shape)), csum
 
 
@@ -633,18 +846,15 @@ def device_copy_with_checksum_pallas(x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def transmit_array_chunked(arr: torch.Tensor, chunk_bytes: int = 8 << 20,
-                           plan=None):
+def transmit_array_chunked(arr: torch.Tensor, chunk_bytes: int = 8 << 20):
     """Chunked flavor of :func:`transmit_array` — the fabric's
     large-frame path.  Frames big enough for ≥2 chunks run the fused
-    chunked copy+checksum; everything else goes to transmit_array.
-    ``plan`` is an optional precomputed ``chunk_plan_for`` result."""
-    if is_numeric(arr.dtype) and int(arr.nbytes) >= MIN_CHUNKS * chunk_bytes:
-        v, block_rows, chunks = (
-            plan if plan is not None else chunk_plan_for(arr, chunk_bytes)
-        )
+    chunked copy+checksum (:func:`device_copy_with_checksum_chunked`: one
+    launch on the card); everything else goes to transmit_array."""
+    if is_numeric(arr.dtype) and arr.nbytes >= MIN_CHUNKS * chunk_bytes:
+        v = lanes_view(arr)
         if v is not None:
-            out, csum = _chunked_copy_csum(v, chunks, block_rows)
+            out, csum = _transmit_blocks(v, _fit_block_rows(v.shape[0]))
             return (out if v is arr else out.reshape(arr.shape)), csum
     return transmit_array(arr)
 

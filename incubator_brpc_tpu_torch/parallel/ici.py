@@ -29,8 +29,11 @@ import weakref
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from incubator_brpc_tpu_torch import errors
 from incubator_brpc_tpu_torch.chaos import injector as _chaos
+from incubator_brpc_tpu_torch.ops import transfer as _transfer
 from incubator_brpc_tpu_torch.observability.profiling import hbm_account, kernel_section
 from incubator_brpc_tpu_torch.observability.span import Span
 from incubator_brpc_tpu_torch.utils.segmentation import (
@@ -79,6 +82,13 @@ ici_pallas_fallbacks = Adder(0).expose("rpc_ici_pallas_fallbacks")
 ici_pallas_stacked_frames = Adder(0).expose("rpc_ici_pallas_stacked_frames")
 ici_pallas_stacked_segments = Adder(0).expose(
     "rpc_ici_pallas_stacked_segments"
+)
+# the transmit's launch plans (ops/transfer.PLANS): a hit issues the
+# kernel from the plan an earlier launch of the same (device, stream,
+# shape, dtype, block rows) built; a miss builds one
+ici_transmit_plan_hits = _transfer.PLANS.hits.expose("rpc_ici_transmit_plan_hits")
+ici_transmit_plan_misses = _transfer.PLANS.misses.expose(
+    "rpc_ici_transmit_plan_misses"
 )
 
 
@@ -701,18 +711,10 @@ class IciFabric:
         contract; per-ref ``csum`` stays None).  Segments the stack
         can't take (non-numeric, untileable, singleton shapes) return
         for the per-segment path."""
-        import torch
-
-        from incubator_brpc_tpu_torch.ops.transfer import (
-            chunk_plan_for,
-            device_copy_with_checksum_pallas,
-            is_numeric,
-        )
-
         rest: List[Tuple] = []
         groups: Dict[Tuple, List[Tuple]] = {}
         for ref, arr in pairs:
-            if is_numeric(arr.dtype):
+            if _transfer.is_numeric(arr.dtype):
                 key = (tuple(arr.shape), str(arr.dtype))
                 groups.setdefault(key, []).append((ref, arr))
             else:
@@ -722,7 +724,7 @@ class IciFabric:
                 rest.extend(grp)
                 continue
             stacked = torch.stack([a for _, a in grp])
-            plan = chunk_plan_for(stacked, self.chunk_bytes)
+            plan = _transfer.chunk_plan_for(stacked, self.chunk_bytes)
             if plan[0] is None:
                 rest.extend(grp)
                 continue
@@ -730,7 +732,7 @@ class IciFabric:
                 # same pre-dispatch walk as the fused/pallas frame path
                 self._chaos_walk_chunks(len(plan[2] or ()), dst_port)
             with kernel_section("ici.pallas"):
-                out, _stack_csum = device_copy_with_checksum_pallas(
+                out, _stack_csum = _transfer.device_copy_with_checksum_pallas(
                     stacked, self.chunk_bytes, plan=plan
                 )
             for i, (ref, _) in enumerate(grp):
@@ -750,32 +752,22 @@ class IciFabric:
     def _transmit_segment(self, arr, dst_port: IciPort, leg):
         """One device segment through the transmit op, per the fabric's
         chunk policy (docs/ici_pipeline.md)."""
-        from incubator_brpc_tpu_torch.ops.transfer import (
-            chunk_plan_for,
-            transmit_array,
-            transmit_array_chunked,
-        )
-
         mode = self.chunk_mode
-        if (
-            mode == "off"
-            or int(arr.nbytes) < MIN_CHUNKS * self.chunk_bytes
-        ):
-            return transmit_array(arr)
+        if mode == "off" or arr.nbytes < MIN_CHUNKS * self.chunk_bytes:
+            return _transfer.transmit_array(arr)
         if mode == "pipelined":
             return self._transmit_pipelined(arr, dst_port, leg)
         if mode == "pallas":
             return self._transmit_pallas(arr, dst_port, leg)
-        plan = None
         if _chaos.armed:
-            # the fused pipeline is ONE compiled program, so the
-            # per-chunk ici.chunk site is walked over the SAME plan
-            # before dispatch: a FaultPlan targeting chunk k faults the
-            # frame under either chunk mode, with identical traversal
-            # indices (chunk_plan_for is the one plan source)
-            plan = chunk_plan_for(arr, self.chunk_bytes)
+            # the fused pipeline is ONE launch, so the per-chunk
+            # ici.chunk site is walked over the SAME plan before
+            # dispatch: a FaultPlan targeting chunk k faults the frame
+            # under either chunk mode, with identical traversal indices
+            # (chunk_plan_for is the one plan source)
+            plan = _transfer.chunk_plan_for(arr, self.chunk_bytes)
             self._chaos_walk_chunks(len(plan[2] or ()), dst_port)
-        return transmit_array_chunked(arr, self.chunk_bytes, plan=plan)
+        return _transfer.transmit_array_chunked(arr, self.chunk_bytes)
 
     @staticmethod
     def _chaos_walk_chunks_step(k: int, total_chunks: int, dst_port: IciPort):
@@ -813,38 +805,29 @@ class IciFabric:
         buffers (``dst_port.staging.release``) get allocation-free
         steady state.  Untileable and non-numeric payloads take the
         per-segment transmit (counted in rpc_ici_pallas_fallbacks)."""
-        from incubator_brpc_tpu_torch.ops.transfer import (
-            chunk_plan_for,
-            device_copy_with_checksum_dma,
-            device_copy_with_checksum_dma_into,
-            is_numeric,
-            staged_plan,
-            transmit_array,
-        )
-
         shape = arr.shape
-        v, block_rows, chunks = chunk_plan_for(arr, self.chunk_bytes)
+        v, block_rows, chunks = _transfer.chunk_plan_for(arr, self.chunk_bytes)
         if v is None:
             ici_pallas_fallbacks << 1
-            return transmit_array(arr)
+            return _transfer.transmit_array(arr)
         total_chunks = len(chunks or ())
         if _chaos.armed:
             # ONE launch per frame, so the per-chunk ici.chunk site
             # walks the SAME plan pre-dispatch — the fused-mode
             # discipline, identical traversal indices
             self._chaos_walk_chunks(total_chunks, dst_port)
-        if not is_numeric(arr.dtype):
+        if not _transfer.is_numeric(arr.dtype):
             ici_pallas_fallbacks << 1
-            return transmit_array(arr)
-        stage_rows = staged_plan(v, block_rows).stage_rows
+            return _transfer.transmit_array(arr)
+        stage_rows = _transfer.staged_plan(v, block_rows).stage_rows
         slot = dst_port.staging.acquire(v.shape, v.dtype)
         with kernel_section("ici.pallas"):
             if slot is not None:
-                out, csum = device_copy_with_checksum_dma_into(
+                out, csum = _transfer.device_copy_with_checksum_dma_into(
                     v, slot, block_rows, stage_rows
                 )
             else:
-                out, csum = device_copy_with_checksum_dma(
+                out, csum = _transfer.device_copy_with_checksum_dma(
                     v, block_rows, stage_rows
                 )
         ici_pallas_frames << 1
@@ -860,34 +843,27 @@ class IciFabric:
         destination port's StagingRing.  The lane accumulator chains
         through the chunks, so the receiver still verifies ONE
         integrity value for the whole frame (and it equals the
-        whole-frame checksum bit-for-bit).  Falls back to the
-        whole-frame op for shapes the kernel doesn't tile."""
-        import torch
-
-        from incubator_brpc_tpu_torch.ops.transfer import (
-            chunk_plan_for,
-            device_copy_with_checksum_chunk,
-            device_copy_with_checksum_chunk_into,
-            fold_checksum,
-            is_numeric,
-            transmit_array,
-        )
-
+        whole-frame checksum bit-for-bit: the last chunk's launch folds
+        it in its tail).  Falls back to the whole-frame op for shapes
+        the kernel doesn't tile."""
         shape = arr.shape
-        x, block_rows, chunks = chunk_plan_for(arr, self.chunk_bytes)
+        x = _transfer.lanes_view(arr)
         if x is None:
-            return transmit_array(arr)  # untileable: whole-frame path
-        if len(chunks) < MIN_CHUNKS:
-            return transmit_array(arr)
+            return _transfer.transmit_array(arr)  # untileable: whole-frame path
         m, n = x.shape
-        row_bytes = n * x.element_size()
+        block_rows = _transfer._fit_block_rows(m)
         # non-numeric payloads (bool, complex) copy chunk by chunk
-        # without a checksum, like the whole-frame path
-        use_csum = is_numeric(x.dtype)
-        acc = (
-            torch.zeros((1, n), dtype=torch.float32, device=x.device)
-            if use_csum else None
+        # without a checksum, like the whole-frame path; a numeric
+        # frame's chunks are its launch plan's
+        use_csum = _transfer.is_numeric(x.dtype)
+        chunks = (
+            _transfer.launch_plan(x, block_rows).chunks(self.chunk_bytes)
+            if use_csum else _transfer.chunk_plan_for(x, self.chunk_bytes)[2]
         )
+        if len(chunks) < MIN_CHUNKS:
+            return _transfer.transmit_array(arr)
+        row_bytes = n * x.element_size()
+        acc = csum = None  # the first chunk folds onto zeros
         ring = dst_port.staging if use_csum else None
         outs = []
         total_chunks = len(chunks)
@@ -906,12 +882,16 @@ class IciFabric:
                 xc = x[off:off + rows]
                 if use_csum:
                     slot = ring.acquire((rows, n), x.dtype)
-                    if slot is not None:
-                        oc, acc = device_copy_with_checksum_chunk_into(
+                    if k == total_chunks - 1:
+                        oc, csum = _transfer.device_copy_with_checksum_last_chunk(
+                            xc, acc, block_rows, slot
+                        )
+                    elif slot is not None:
+                        oc, acc = _transfer.device_copy_with_checksum_chunk_into(
                             xc, acc, slot, block_rows
                         )
                     else:
-                        oc, acc = device_copy_with_checksum_chunk(
+                        oc, acc = _transfer.device_copy_with_checksum_chunk(
                             xc, acc, block_rows
                         )
                 else:
@@ -927,7 +907,6 @@ class IciFabric:
             # receiver: never recycle it.)
             for oc in outs:
                 ring.release(oc)
-        csum = fold_checksum(acc) if use_csum else None
         return (out.reshape(shape) if out.shape != shape else out), csum
 
 

@@ -557,9 +557,10 @@ def bench_tcp_echo(payload=4096, calls=4000, threads=8):
 
 
 # transmits a queued window of bench_transmit_op's chain holds on the card
-# (three launches each: K1, the fold, the scalar add; an H100's stream took
-# 340 behind a sleep before the host waited); a longer chain is timed in
-# consecutive windows, its device times added
+# (two launches each: K1, which folds the checksum in its tail, and the
+# scalar add; an H100's stream took 340 of three launches behind a sleep
+# before the host waited); a longer chain is timed in consecutive windows,
+# its device times added
 QUEUED_TRANSMITS = 200
 
 

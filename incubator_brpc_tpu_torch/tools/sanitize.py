@@ -28,8 +28,9 @@ the tool's own words, before any case runs.
 ``--launch-cases`` launches each kernel on reduced versions of the
 ``kernels`` cases of ``chip_smoke.py`` (the same dtypes and row widths,
 at most 2 MiB each): K1 whole with its fold, with a carry, chained
-chunks and into an ``out=`` slot; K2 and K2 into a slot; ``copy_blocks``
-fresh and into ``out=``.  It runs on the card unless ``--device cpu``
+chunks and into an ``out=`` slot; K2 and K2 into a slot; K1 and K2 asked
+for the frame's checksum, their in-tail scalars held to the plain
+fold; ``copy_blocks`` fresh and into ``out=``.  It runs on the card unless ``--device cpu``
 is given, and raises without one.  Every result is held bit-equal to
 the plain version on the same device; it exits 0 only if every one is
 and, on the card, every kernel launched.  On the CPU every wrapper runs
@@ -40,8 +41,8 @@ adds the checks that need no tool: each output lies between two
 poisoned guard bands that must come back untouched, outputs start
 poisoned and each K1/K2 launch is handed a scratch ``partial`` of NaNs
 (an element a kernel does not write, or reads before writing, shows as
-a mismatch), the arrival counters must be back at zero after every
-launch, and on the card the cases run on two streams at once: both are
+a mismatch), every launch plan's arrival counters (the frame's
+included) must be back at zero after every launch, and on the card the cases run on two streams at once: both are
 held behind one gate until the host has queued them (after a first run
 on the current stream), and events on each must bracket intervals that
 overlap.
@@ -286,8 +287,8 @@ class _Guarded:
                 if not bool((band == POISON).all()):
                     found.append(f"{what}: a guard band was written")
         self.bands.clear()
-        for key, counters in self.T._counters.items():
-            if int(torch.count_nonzero(counters)):
+        for key, plan in self.T.PLANS.items():
+            if plan.counters is not None and int(torch.count_nonzero(plan.counters)):
                 found.append(f"arrival counters of {key} not back at zero")
         return found
 
@@ -369,12 +370,15 @@ def launch_cases(device=None, guarded: bool = False) -> dict:
                 got["K2"] = T._staged_copy_csum(x, br, sr, out("K2"), scratch())
                 k2_slot, k2_acc = T._staged_copy_csum(x, br, sr, out("K2 slot"), scratch())
                 k2_csum = T.fold_checksum(k2_acc)
+                # launches that end a frame: its checksum folded in their tail
+                tails = {"K1 tail": T._transmit_blocks(x, br, None, out("K1 tail")),
+                         "K2 tail": T._transmit_staged(x, br, sr, out("K2 tail"))}
                 _, k1_csum = T.device_copy_with_checksum(x)
                 copy_fresh = T.device_copy(x)
                 copy_into = T.device_copy(x, out=out("copy_blocks out="))
                 if s is not None:
                     span[1].record(s)
-            runs.append((s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g,
+            runs.append((s, got, tails, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g,
                          span if s is not None else None))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -385,15 +389,19 @@ def launch_cases(device=None, guarded: bool = False) -> dict:
             else:
                 mismatches.append(f"{case}: the two streams did not run at once "
                                   f"({a0:.3f}-{b0:.3f} ms, {a1:.3f}-{b1:.3f} ms)")
-        for j, (s, got, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g, _) in \
+        for j, (s, got, tails, k2_slot, k2_csum, k1_csum, copy_fresh, copy_into, g, _) in \
                 enumerate(runs):
             tag = f"{case}" + (f" (stream {j})" if s is not None else "")
             for name, (o, acc) in got.items():
                 hold(f"{name} copy, {tag}", o, x)
                 hold(f"{name} accumulator, {tag}", acc, acc_pc if name == "K1 carry" else acc_p)
             hold(f"K2 slot copy, {tag}", k2_slot, x)
-            hold(f"K2 slot checksum, {tag}", k2_csum, T.fold_checksum(acc_p))
-            hold(f"K1 fold tail checksum, {tag}", k1_csum, T.fold_checksum(acc_p))
+            csum_p = T.fold_checksum(acc_p)
+            hold(f"K2 slot checksum, {tag}", k2_csum, csum_p)
+            hold(f"K1 fold tail checksum, {tag}", k1_csum, csum_p)
+            for name, (o, csum) in tails.items():
+                hold(f"{name} copy, {tag}", o, x)
+                hold(f"{name} checksum, {tag}", csum, csum_p)
             hold(f"copy_blocks, {tag}", copy_fresh, x)
             hold(f"copy_blocks out=, {tag}", copy_into, x)
             if g is not None:

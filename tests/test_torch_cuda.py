@@ -9,7 +9,8 @@ a machine with the card and without JAX:
 
 Tolerances: copies byte-equal; every mode's accumulator and checksum
 bit-equal to the whole-frame kernel's and to the plain version's, which
-adds in the kernels' order; a batched Forward row within 2e-6 x
+adds in the kernels' order (the checksum K1 and K2 fold in their tail
+bit-equal to ``fold_checksum`` of the accumulator); a batched Forward row within 2e-6 x
 (|x| @ |W|) of the float64 product (float32 with TF32 off; a TF32
 product would fail it).
 """
@@ -230,8 +231,10 @@ def _seeded(shape, dtype, seed, device):
 def test_k1_and_k2_back_to_back_leave_no_counter_dirty(cuda_device):
     """K1 (with and without a carry) and K2 over shapes of
     different column-tile and row-block counts, repeated and
-    interleaved: a counter left nonzero or a stale partial read by a
-    tile's last CTA would break a later accumulator."""
+    interleaved, each also asked for the frame's checksum: a counter
+    left nonzero (a tile's, a slice's or the frame's) or a stale partial
+    or lane read by a last arrival would break a later accumulator or
+    scalar, and every plan's counters end at zero."""
     cases = []
     for i, (shape, dtype) in enumerate([
         ((8192, 2048), torch.float32),   # 64 MB frame: 32 tiles x 32 blocks
@@ -255,14 +258,22 @@ def test_k1_and_k2_back_to_back_leave_no_counter_dirty(cuda_device):
             got.append((TT._copy_csum(x, None, br)[1], plain))
             got.append((TT._staged_copy_csum(x, br, sr)[1], plain))
             got.append((TT._copy_csum(x, carry, br)[1], plain_c))
+            got.append((TT._transmit_blocks(x, br)[1], TT.fold_checksum(plain)))
+            got.append((TT._transmit_staged(x, br, sr)[1], TT.fold_checksum(plain)))
+            got.append((TT._transmit_blocks(x, br, carry)[1], TT.fold_checksum(plain_c)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, p) for a, p in got)
+    for key, plan in TT.PLANS.items():
+        if plan.counters is not None:
+            assert int(torch.count_nonzero(plan.counters)) == 0, key
 
 
 def test_two_streams_at_once_give_the_same_bits(cuda_device):
     """The same payloads transmitted on two CUDA streams concurrently:
-    each stream has its own arrival counters, so the accumulators stay
-    bit-equal to the plain version's."""
+    each stream has launch plans of its own (arrival counters, scratch,
+    the lane accumulator a frame's checksum folds through), so the
+    accumulators and the in-tail checksums stay bit-equal to the plain
+    version's."""
     xs = [_seeded(shape, torch.float32, 7, cuda_device) for shape in ((8192, 2048), (1024, 2048))]
     plains = [TT.copy_csum_plain(x, None, TT._fit_block_rows(x.shape[0]))[1] for x in xs]
     streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
@@ -273,12 +284,129 @@ def test_two_streams_at_once_give_the_same_bits(cuda_device):
             with torch.cuda.stream(s):
                 for x, plain in zip(xs, plains):
                     br = TT._fit_block_rows(x.shape[0])
+                    sr = TT.staged_plan(x, br).stage_rows
                     got.append((TT._copy_csum(x, None, br)[1], plain))
-                    got.append((TT._staged_copy_csum(x, br, TT.staged_plan(x, br).stage_rows)[1],
-                                plain))
+                    got.append((TT._staged_copy_csum(x, br, sr)[1], plain))
+                    got.append((TT.device_copy_with_checksum(x)[1], TT.fold_checksum(plain)))
+                    got.append((TT.device_copy_with_checksum_dma(x, br, sr)[1],
+                                TT.fold_checksum(plain)))
     torch.cuda.synchronize()
     assert all(torch.equal(a, p) for a, p in got)
-    assert {(cuda_device.index, s.cuda_stream) for s in streams} <= set(TT._counters)
+    assert {(cuda_device.index, s.cuda_stream) for s in streams} <= {
+        key[:2] for key, _ in TT.PLANS.items()}
+
+
+# chip_smoke.py's [kernels] cases: every main path's lane view
+KERNEL_CASES = [
+    ((8192, 2048), torch.float32), ((6144, 6144), torch.float32),
+    ((320, 256), torch.float32), ((1000, 128), torch.float32), ((1, 128), torch.float32),
+    ((4096, 1024), torch.bfloat16), ((1000, 384), torch.uint8), ((512, 256), torch.int32),
+    ((768, 512), torch.float16), ((256, 4096), torch.uint8), ((1, 4096), torch.uint8),
+    ((32, 1 << 20), torch.uint8), ((256, 1024), torch.float32),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", KERNEL_CASES)
+def test_in_tail_scalar_equals_the_plain_fold(cuda_device, shape, dtype):
+    """The frame checksum K1 and K2 fold in their tail, bit-equal to
+    ``fold_checksum`` of the same launch's accumulator and of the plain
+    version's, whole frame and from a carry."""
+    g = torch.Generator().manual_seed(shape[1])
+    x = (torch.randn(shape, generator=g) if dtype.is_floating_point
+         else torch.randint(0, 128, shape, generator=g)).to(dtype).to(cuda_device)
+    br = TT._fit_block_rows(shape[0])
+    sr = TT.staged_plan(x, br).stage_rows
+    carry = _seeded((1, shape[1]), torch.float32, 10, cuda_device)
+    tails = [torch.empty((), dtype=torch.float32, device=cuda_device) for _ in range(3)]
+    _, acc1 = TT._copy_csum(x, None, br, csum=tails[0])
+    _, acc2 = TT._staged_copy_csum(x, br, sr, csum=tails[1])
+    _, acc3 = TT._copy_csum(x, carry, br, csum=tails[2])
+    torch.cuda.synchronize()
+    plain = TT.copy_csum_plain(x, None, br)[1]
+    plain_c = TT.copy_csum_plain(x, carry, br)[1]
+    for tail, acc, want in ((tails[0], acc1, plain), (tails[1], acc2, plain),
+                            (tails[2], acc3, plain_c)):
+        assert torch.equal(acc, want)
+        assert torch.equal(tail, TT.fold_checksum(acc))
+        assert torch.equal(tail, TT.fold_checksum(want))
+
+
+@pytest.mark.parametrize("shape", [(8192, 2048), (6144, 6144), (1024, 256)])
+def test_last_chunk_and_k2_scalars_equal_the_whole_frame(cuda_device, shape):
+    """A chunked frame's last chunk folds the frame's checksum in its
+    tail, and so does K2's launch: both bit-equal to the whole-frame
+    K1's, which the chunked and staged entries are held to as well."""
+    x = _seeded(shape, torch.float32, 11, cuda_device)
+    _, whole = TT.device_copy_with_checksum(x)
+    v, br, chunks = TT.chunk_plan_for(x, x.nbytes // 5)
+    carry = None
+    for off, rows in chunks[:-1]:
+        _, carry = TT.device_copy_with_checksum_chunk(
+            x[off:off + rows],
+            carry if carry is not None else torch.zeros((1, shape[1]), device=cuda_device), br)
+    off, rows = chunks[-1]
+    out_last, last = TT.device_copy_with_checksum_last_chunk(x[off:], carry, br)
+    _, staged = TT.device_copy_with_checksum_dma(x, br, TT.staged_plan(x, br).stage_rows)
+    _, chunked = TT.device_copy_with_checksum_chunked(x, x.nbytes // 5)
+    _, pallas = TT.device_copy_with_checksum_pallas(x, x.nbytes // 5)
+    torch.cuda.synchronize()
+    assert len(chunks) > 1 and torch.equal(out_last, x[off:])
+    for csum in (last, staged, chunked, pallas):
+        assert torch.equal(csum, whole)
+    assert torch.equal(whole, TT.fold_checksum(TT.copy_csum_plain(x, None, br)[1]))
+
+
+def test_one_launch_a_transmit_and_no_reduce_in_an_echo(cuda_device, tmp_path):
+    """A 64 MB echo over ici:// in the fused mode, in a profiler trace:
+    one K1 a hop, two in all, and no reduce kernel (the checksum is
+    folded in K1's tail); the reply carries the whole frame's checksum.
+    The plan cache hits on the second echo."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from incubator_brpc_tpu_torch import Channel, ChannelOptions, Controller, Server
+    from incubator_brpc_tpu_torch.models.echo import EchoService, echo_stub
+    from incubator_brpc_tpu_torch.parallel.ici import get_fabric
+    from incubator_brpc_tpu_torch.protos.echo_pb2 import EchoRequest
+
+    fab = get_fabric()
+    saved = (fab.chunk_mode, fab.chunk_bytes)
+    fab.chunk_mode = "fused"
+    srv = Server()
+    srv.add_service(EchoService())
+    assert srv.start_ici(12, 70, device=cuda_device) == 0
+    try:
+        ch = Channel(ChannelOptions(timeout_ms=30000, ici_device=cuda_device))
+        assert ch.init("ici://slice12/chip70") == 0
+        x = _seeded((8192, 2048), torch.float32, 12, cuda_device)
+
+        def echo():
+            c = Controller()
+            c.request_attachment.append_device(x)
+            echo_stub(ch).Echo(c, EchoRequest(message="bulk"))
+            assert not c.failed(), c.error_text()
+            return c.response_attachment.device_segments()[0]
+
+        first = echo()  # builds both hops' plans
+        torch.cuda.synchronize()
+        hits = TT.PLANS.hits.get_value()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            seg = echo()
+            torch.cuda.synchronize()
+        assert TT.PLANS.hits.get_value() - hits == 2
+        prof.export_chrome_trace(str(tmp_path / "echo.json"))
+        events = json.loads((tmp_path / "echo.json").read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        assert sum("copy_csum_blocks_kernel" in k for k in kernels) == 2, kernels
+        assert not [k for k in kernels if "reduce" in k.lower()], kernels
+        assert torch.equal(seg.array, x) and torch.equal(seg.csum, first.csum)
+        assert torch.equal(seg.csum, TT.device_copy_with_checksum(x)[1])
+        assert seg.array.data_ptr() != first.array.data_ptr()
+        assert seg.csum.data_ptr() != first.csum.data_ptr()
+    finally:
+        srv.stop()
+        fab.chunk_mode, fab.chunk_bytes = saved
 
 
 def test_batched_forward_on_the_card(cuda_device):

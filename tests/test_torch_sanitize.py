@@ -150,9 +150,11 @@ def test_launch_cases_hold_every_plain_invariant_on_the_cpu(guarded):
     summary = S.launch_cases("cpu", guarded=guarded)
     assert summary["mismatches"] == []
     assert summary["cases"] == 13 == len(S.CASES)
-    # 15 checks a case: 5 K1/K2 copies and accumulators, the K2 slot's
-    # copy and checksum, the fold's checksum, two copy_blocks outputs
-    assert summary["checks"] == 15 * 13
+    # 19 checks a case: 5 K1/K2 copies and accumulators, the K2 slot's
+    # copy and checksum, the fold's checksum, the copies and in-tail
+    # checksums of a K1 and a K2 launch that end a frame, two copy_blocks
+    # outputs
+    assert summary["checks"] == 19 * 13
     assert summary["launches"] == {"copy_csum_blocks": 0, "copy_csum_staged": 0,
                                    "copy_blocks": 0}
 
